@@ -1,0 +1,47 @@
+"""raycastworlds_tpu_torch -- the raycast world engine in PyTorch and CUDA.
+
+The port of ``raycastworlds_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
+H100.  The JAX package is the reference: module names match, and the tests
+hold each module of this package against its JAX counterpart.  This package
+imports ``torch`` and numpy only.
+
+* ``EnvConfig`` -- static config, field for field the JAX package's
+* ``EnvState``  -- dataclass of batched ``[B, ...]`` tensors
+* ``SingleRoom`` -- the walled room with one goal
+* ``Env``       -- batched auto-resetting environment on one device
+* ``rng``       -- threefry-2x32, bit-exact with ``jax.random``
+* ``ops``       -- crossing raycast (plain and CUDA kernel), collision, render
+"""
+
+from .config import (
+    ACTION_NAMES,
+    MOVE_BACKWARD,
+    MOVE_FORWARD,
+    NUM_ACTIONS,
+    TURN_LEFT,
+    TURN_RIGHT,
+    EnvConfig,
+)
+from .env import Env, Space, StepResult
+from .models.single_room import SingleRoom
+from .state import EnvState
+from . import colors, rng
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "EnvConfig",
+    "EnvState",
+    "Env",
+    "Space",
+    "StepResult",
+    "SingleRoom",
+    "colors",
+    "rng",
+    "NUM_ACTIONS",
+    "MOVE_FORWARD",
+    "MOVE_BACKWARD",
+    "TURN_LEFT",
+    "TURN_RIGHT",
+    "ACTION_NAMES",
+]

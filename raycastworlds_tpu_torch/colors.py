@@ -1,0 +1,78 @@
+"""Render palette: the JAX package's ``colors`` constants, copied so the port
+does not import the JAX package.  Values are 0x00RRGGBB."""
+
+from __future__ import annotations
+
+import numpy as np
+
+TILE_WALL = 0x00FFFFFF
+TILE_GOAL = 0x00FF0000
+TILE_EMPTY = 0x00000000
+
+RAY = 0x00808080
+PLAYER = 0x00C0C0C0
+FLOOR = 0x00404040
+CEILING = 0x00FFFFFF
+WALL_DIM_I = 0x00808080   # hit face perpendicular to the i-axis
+WALL_DIM_J = 0x00C0C0C0   # hit face perpendicular to the j-axis
+GOAL_DIM_I = 0x00800000
+GOAL_DIM_J = 0x00C00000
+GRID_LINE = 0x00CCCCCC
+
+TILE_BLOCK = 0x000000FF
+BLOCK_DIM_I = 0x00000080
+BLOCK_DIM_J = 0x000000C0
+
+# Canonical palette of the 1-byte "camera_pal8" observation.  Index order is
+# frozen: parity tests and trained policies depend on it.
+PALETTE = (
+    0x00000000,  # 0  black (empty tile)
+    0x00FFFFFF,  # 1  white (ceiling, tile-map wall)
+    0x00808080,  # 2  gray (wall face dim-i, top-view rays)
+    0x00C0C0C0,  # 3  light gray (wall face dim-j, player)
+    0x00404040,  # 4  dark gray (floor)
+    0x00FF0000,  # 5  red (tile-map goal)
+    0x00800000,  # 6  dark red (goal face dim-i)
+    0x00C00000,  # 7  mid red (goal face dim-j)
+    0x00CCCCCC,  # 8  grid-line gray
+    0x000000FF,  # 9  blue (tile-map block)
+    0x00000080,  # 10 dark blue (block face dim-i)
+    0x000000C0,  # 11 mid blue (block face dim-j)
+)
+
+PAL_EMPTY = 0
+PAL_CEILING = 1
+PAL_WALL_DIM_I = 2
+PAL_WALL_DIM_J = 3
+PAL_FLOOR = 4
+PAL_GOAL = 5
+PAL_GOAL_DIM_I = 6
+PAL_GOAL_DIM_J = 7
+PAL_GRID_LINE = 8
+PAL_BLOCK = 9
+PAL_BLOCK_DIM_I = 10
+PAL_BLOCK_DIM_J = 11
+
+PALETTE_NP = np.array(PALETTE, dtype=np.uint32)
+
+# Textured pal8 palettes append 6 slab colors x at most this many factors.
+PAL_TEX_BASE = 12
+TEX_SLABS = (
+    WALL_DIM_I, WALL_DIM_J, GOAL_DIM_I, GOAL_DIM_J, BLOCK_DIM_I, BLOCK_DIM_J
+)
+MAX_TEX_FACTORS = (256 - PAL_TEX_BASE) // len(TEX_SLABS)  # 40
+
+
+def pal8_to_u32_np(img_pal8: np.ndarray, palette: np.ndarray = None) -> np.ndarray:
+    """Decode a palette-index image to 0x00RRGGBB uint32 (host side)."""
+    pal = PALETTE_NP if palette is None else np.asarray(palette, np.uint32)
+    return pal[np.asarray(img_pal8, dtype=np.int64)]
+
+
+def u32_to_rgb(img_u32: np.ndarray) -> np.ndarray:
+    """Unpack a 0x00RRGGBB uint32 image to uint8 [..., 3] RGB (host side)."""
+    img_u32 = np.asarray(img_u32, dtype=np.uint32)
+    r = (img_u32 >> 16) & 0xFF
+    g = (img_u32 >> 8) & 0xFF
+    b = img_u32 & 0xFF
+    return np.stack([r, g, b], axis=-1).astype(np.uint8)

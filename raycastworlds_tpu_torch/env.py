@@ -1,0 +1,135 @@
+"""Batched, auto-resetting environment API.
+
+    env = Env(SingleRoom(EnvConfig()), num_envs=1024, device="cuda")
+    state, obs = env.reset(rng.PRNGKey(0))
+    state, obs, reward, done, info = env.step(state, actions)
+
+With ``auto_reset=True`` (default) finished envs are re-initialized inside
+the same step: the returned ``reward``/``done`` describe the finishing
+transition while ``obs``/``state`` already belong to the next episode.
+Resets are dense: every step computes a fresh reset for every env from its
+own key and selects it where the episode ended, which keeps trajectories
+reproducible per env.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from . import rng
+from .models.base import Game
+from .state import EnvState, select
+
+
+class StepResult(NamedTuple):
+    state: EnvState
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    info: Dict[str, torch.Tensor]
+
+
+class Space(NamedTuple):
+    """Minimal space descriptor (no gym dependency)."""
+
+    shape: Tuple[int, ...]
+    dtype: Any
+    n: Optional[int] = None  # discrete cardinality, None for boxes
+
+
+_OBS_DTYPES = {
+    "camera_u32": torch.uint32,
+    "camera_rgb": torch.uint8,
+    "camera_gray": torch.float32,
+    "camera_pal8": torch.uint8,
+    "camera_gray_u8": torch.uint8,
+    "depth": torch.float32,
+    "tile_grid": torch.int32,
+    "top_u32": torch.uint32,
+    "top_rgb": torch.uint8,
+}
+
+
+class Env:
+    """Batched auto-resetting environment on one ``device``."""
+
+    def __init__(
+        self,
+        game: Game,
+        num_envs: int = 1,
+        auto_reset: bool = True,
+        device=None,
+        final_obs_in_info: bool = False,
+        *,
+        jit: bool = True,
+        donate: bool = False,
+        reset_budget: int = 0,
+    ):
+        """``jit`` and ``donate`` have no counterpart in eager PyTorch and are
+        ignored.  ``final_obs_in_info=True`` also renders the post-step,
+        pre-reset state into ``info["final_observation"]`` (the terminal
+        observation the auto-reset otherwise discards), at the cost of a
+        second cast and render per step."""
+        del jit, donate
+        if reset_budget > 0:
+            raise NotImplementedError(
+                "budgeted reset is not ported yet (ROADMAP Queue 1 item 12)"
+            )
+        self.game = game
+        self.cfg = game.cfg
+        self.num_envs = num_envs
+        self.auto_reset = auto_reset
+        self.device = torch.device(device if device is not None else "cpu")
+        self.final_obs_in_info = final_obs_in_info
+
+    # -- spaces ---------------------------------------------------------
+
+    @property
+    def action_space(self) -> Space:
+        return Space(shape=self.game.action_shape, dtype=torch.int32,
+                     n=self.game.num_actions)
+
+    @property
+    def observation_space(self) -> Space:
+        return Space(shape=self.cfg.obs_shape, dtype=_OBS_DTYPES[self.cfg.obs_type])
+
+    # -- public ---------------------------------------------------------
+
+    def reset(self, key: torch.Tensor) -> Tuple[EnvState, torch.Tensor]:
+        """Reset all envs from one key (split into one key per env)."""
+        keys = rng.split(key.to(self.device), self.num_envs)
+        state = self.game.reset_batch(keys)
+        return state, self.game.observe_batch(state)
+
+    def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
+        game = self.game
+        stepped = game.step_batch(state, action.to(self.device, torch.int32))
+        terminated = stepped.done
+        if self.cfg.max_episode_steps > 0:
+            truncated = ~terminated & (stepped.t >= self.cfg.max_episode_steps)
+        else:
+            truncated = torch.zeros_like(terminated)
+        ep_end = terminated | truncated
+        info = {
+            "terminal_t": stepped.t,
+            "episode_return": stepped.episode_return,
+            "terminated": terminated,
+            "truncated": truncated,
+        }
+        if self.auto_reset and self.final_obs_in_info:
+            info["final_observation"] = game.observe_batch(stepped)
+        if self.auto_reset:
+            fresh = game.reset_batch(stepped.rng_key)
+            nxt = select(ep_end, fresh, stepped)
+            # reward/done of the ending transition survive the reset; done
+            # marks the episode boundary (terminated or truncated).
+            nxt = nxt.replace(reward=stepped.reward, done=ep_end)
+        else:
+            nxt = stepped.replace(done=ep_end)
+        return StepResult(nxt, game.observe_batch(nxt), stepped.reward, ep_end, info)
+
+    def sample_action(self, key: torch.Tensor) -> torch.Tensor:
+        shape = (self.num_envs,) + self.game.action_shape
+        return rng.randint(key.to(self.device), shape, 0, self.game.num_actions)

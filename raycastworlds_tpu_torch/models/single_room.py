@@ -1,0 +1,64 @@
+"""SingleRoom: a walled rectangular room with one goal tile and a circular
+player.  Reset draws, per env, a goal uniform over the interior, a spawn
+uniform over the empty tiles and a heading uniform over the angle units,
+from the env's key split in the JAX package's order (next, goal, spawn,
+heading), so both packages reset every env to the same state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import rng
+from ..config import EnvConfig
+from ..ops import sampling
+from ..state import EnvState
+from .base import Game
+
+
+class SingleRoom(Game):
+    def reset_batch(self, keys: torch.Tensor) -> EnvState:
+        cfg = self.cfg
+        dev = keys.device
+        b = keys.shape[0]
+        sub = rng.split(keys, 4)                                  # [B, 4, 2]
+        next_key, k_goal, k_spawn, k_dir = (sub[:, q] for q in range(4))
+
+        words = self._table("border_wall_words", dev).view(torch.int32)
+        wall_words = words[None, :].expand(b, -1).contiguous()
+        goal_tu = sampling.sample_interior_tile(k_goal, cfg.H, cfg.W)
+        # Spawn: uniform over interior tiles minus the goal, in closed form
+        # (the k-th empty tile in row-major order, skipping the goal's rank).
+        wi = cfg.W - 2
+        n = np.float32((cfg.H - 2) * wi - 1)
+        u = rng.uniform(k_spawn, ())
+        k = torch.clamp(
+            torch.floor(u * torch.tensor(n, device=dev)),
+            0.0, float(max(n - 1.0, 0.0)),
+        ).to(torch.int32)
+        goal_rank = sampling.interior_rank(goal_tu, cfg.W)
+        r = k + (k >= goal_rank).to(torch.int32)
+        spawn_tu = torch.stack([1 + r // wi, 1 + r % wi], dim=-1)
+        pos_wu = spawn_tu.to(torch.float32) + 0.5                # tile centre
+        dir_au = sampling.sample_heading(k_dir, cfg.num_directions)
+
+        zeros_f = torch.zeros(b, dtype=torch.float32, device=dev)
+        falses = torch.zeros(b, dtype=torch.bool, device=dev)
+        return EnvState(
+            wall_words=wall_words,
+            goal_tu=goal_tu,
+            pos_wu=pos_wu,
+            dir_au=dir_au,
+            reward=zeros_f,
+            done=falses,
+            rng_key=next_key.contiguous(),
+            t=torch.zeros(b, dtype=torch.int32, device=dev),
+            episode_return=zeros_f.clone(),
+            pending_reset=falses.clone(),
+            hw=(cfg.H, cfg.W),
+        )
+
+
+def make(cfg: EnvConfig | None = None, **kw) -> SingleRoom:
+    return SingleRoom(cfg if cfg is not None else EnvConfig(**kw))

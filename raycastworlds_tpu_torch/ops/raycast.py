@@ -1,0 +1,203 @@
+"""The crossing raycaster in plain PyTorch, batched over ``[B, R]``.
+
+A ray leaving ``p`` along ``d`` crosses at most H i-lines and W j-lines
+before the border walls stop it; crossing k of an axis enters exactly one
+tile at the closed-form distance ``t = (frac + k) / |d|``.  The hit is the
+smallest crossing distance whose entered tile is occupied.  Every candidate
+of every ray is evaluated at once as ``[B, N, R]`` tensors and reduced with
+a (t, k) lexicographic min.
+
+This is the plain ``crossing`` backend and the parity reference of the JAX
+package's ``ops/raycast.cast_rays_crossing``: the same float32 expressions,
+tie rules and clip-and-mask handling.  ``t`` is add-then-divide (one
+correctly rounded division, never a contractible mul+add); the cross
+coordinate ``p + t*d`` is two eager ops, so it rounds twice.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..config import EnvConfig
+from . import bitmap
+
+_BIG = float(np.finfo(np.float32).max)
+
+
+class RayHits(NamedTuple):
+    """Per-ray cast results."""
+
+    ray_dirs: torch.Tensor  # f32[B, R, 2] normalized ray directions
+    hit_tu: torch.Tensor    # i32[B, R, 2] hit tile
+    hit_dim: torch.Tensor   # i32[B, R]    0 = i-face, 1 = j-face
+    dist_wu: torch.Tensor   # f32[B, R]    distance along the ray to the face
+
+
+def _crossing_axis(
+    shape: Tuple[int, int],
+    d_main: torch.Tensor,    # f32[B, R] direction component along the crossed axis
+    d_cross: torch.Tensor,   # f32[B, R] the other component
+    p_main: torch.Tensor,    # f32[B, 1] origin along the crossed axis
+    p_cross: torch.Tensor,   # f32[B, 1] origin along the other axis
+    main_is_i: bool,
+    line_words: List[torch.Tensor],  # per 32-tile word q: i32[B, size_main]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """All grid-line crossings of one axis.
+
+    Returns (best_t f32[B, R], main_tile i32[B, R], cross_tile i32[B, R]):
+    the smallest crossing distance whose entered tile is occupied, or the
+    largest float32 when no crossing of this axis hits.
+    """
+    h, w = shape
+    dev = d_main.device
+    n = h if main_is_i else w
+    size_main = n
+    size_cross = w if main_is_i else h
+
+    fl = torch.floor(p_main)
+    main0 = fl.to(torch.int32)                                   # [B, 1]
+    neg = d_main < 0
+    step = torch.where(neg, -1, 1).to(torch.int32)               # [B, R]
+    frac = p_main - fl
+    frac_sel = torch.where(neg, frac, 1.0 - frac)                # [B, R]
+    ad = torch.abs(d_main)
+
+    k = torch.arange(n, dtype=d_main.dtype, device=dev)          # [N]
+    t = (frac_sel[:, None, :] + k[None, :, None]) / ad[:, None, :]  # [B, N, R]
+    finite = torch.isfinite(t)
+    c = p_cross[:, :, None] + t * d_cross[:, None, :]
+    c = torch.where(finite, c, 0.0)
+    # Entered tile on the crossed axis is exact integer arithmetic; the
+    # cross-axis tile replays the sequential march's tie rule (ties advance
+    # j first): at an i-crossing a simultaneous j-crossing has advanced
+    # (floor for dy >= 0, ceil-1 for dy < 0; dy == 0 slides on the line and
+    # keeps floor); at a j-crossing a simultaneous i-crossing has not
+    # (ceil-1 for dx > 0, floor otherwise).
+    dc = d_cross[:, None, :]
+    if main_is_i:
+        c_tile = torch.where(dc >= 0, torch.floor(c), torch.ceil(c) - 1.0)
+    else:
+        c_tile = torch.where(dc > 0, torch.ceil(c) - 1.0, torch.floor(c))
+    c_idx = torch.clamp(c_tile, 0.0, float(size_cross - 1)).to(torch.int32)
+
+    # The crossed line depends on the ray only through the step sign, so the
+    # candidate's line word is one of two per-env rows.
+    ks = torch.arange(1, n + 1, dtype=torch.int32, device=dev)[None, :]
+    m_plus = torch.clamp(main0 + ks, 0, size_main - 1).to(torch.int64)   # [B, N]
+    m_minus = torch.clamp(main0 - ks, 0, size_main - 1).to(torch.int64)
+    step_pos = (step > 0)[:, None, :]
+    bit = c_idx & 31
+    occ = None
+    for q, lw in enumerate(line_words):
+        w_plus = torch.gather(lw, 1, m_plus)[:, :, None]         # [B, N, 1]
+        w_minus = torch.gather(lw, 1, m_minus)[:, :, None]
+        word = torch.where(step_pos, w_plus, w_minus)            # [B, N, R]
+        hit_q = ((word >> bit) & 1) == 1
+        if len(line_words) > 1:
+            hit_q = hit_q & ((c_idx >> 5) == q)
+        occ = hit_q if occ is None else occ | hit_q
+    occ = occ & finite
+    t_m = torch.where(occ, t, _BIG)                              # [B, N, R]
+
+    # (t, k) lexicographic min: the smallest t, and among equal t the
+    # smallest k.  An axis with no hit selects k = 0, as the JAX reduce
+    # (initial k = n) does.
+    best = torch.amin(t_m, dim=1)                                # [B, R]
+    kk = torch.arange(n, dtype=torch.int32, device=dev)[None, :, None]
+    kb = torch.where(t_m == best[:, None, :], kk, n).amin(dim=1)  # [B, R]
+    c_best = torch.gather(c_idx, 1, kb[:, None, :].to(torch.int64))[:, 0, :]
+    m_best = main0 + (kb + 1) * step
+    return best, m_best, c_best
+
+
+def _row_line_words(dense: torch.Tensor) -> List[torch.Tensor]:
+    """Per-row occupancy words of dense int32 0/1 maps [B, H, W]: a list of
+    ceil(W/32) tensors i32[B, H], word q bit j%32 = tile (i, 32q + j%32)."""
+    w = dense.shape[-1]
+    out = []
+    for q in range(0, w, 32):
+        cols = dense[:, :, q : min(q + 32, w)]
+        sh = torch.arange(cols.shape[-1], dtype=torch.int32, device=dense.device)
+        out.append((cols << sh).sum(dim=-1, dtype=torch.int32))
+    return out
+
+
+def _col_line_words(dense: torch.Tensor) -> List[torch.Tensor]:
+    """Per-column occupancy words: ceil(H/32) tensors i32[B, W], word q bit
+    i%32 = tile (32q + i%32, j)."""
+    h = dense.shape[-2]
+    out = []
+    for q in range(0, h, 32):
+        rows = dense[:, q : min(q + 32, h), :]
+        sh = torch.arange(rows.shape[-2], dtype=torch.int32, device=dense.device)
+        out.append((rows << sh[:, None]).sum(dim=-2, dtype=torch.int32))
+    return out
+
+
+def cast_rays_crossing(
+    obstacle_words: torch.Tensor,   # i32[B, NW]
+    shape: Tuple[int, int],
+    pos_wu: torch.Tensor,           # f32[B, 2]
+    ray_dirs: torch.Tensor,         # f32[B, R, 2]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain crossing cast.  Returns (hit_tu i32[B, R, 2], hit_dim i32[B, R],
+    dist f32[B, R]); cross-axis distance ties resolve to the j face."""
+    h, w = shape
+    dx = ray_dirs[..., 0]
+    dy = ray_dirs[..., 1]
+    px = pos_wu[:, 0:1]
+    py = pos_wu[:, 1:2]
+    dense = bitmap.unpack_bits(obstacle_words, (h, w)).to(torch.int32)
+    ti, ii, ji = _crossing_axis(
+        (h, w), dx, dy, px, py, True, _row_line_words(dense)
+    )
+    tj, jj, ij = _crossing_axis(
+        (h, w), dy, dx, py, px, False, _col_line_words(dense)
+    )
+    use_j = tj <= ti
+    dist = torch.where(use_j, tj, ti)
+    hit_dim = use_j.to(torch.int32)
+    hit_i = torch.where(use_j, ij, ii)
+    hit_j = torch.where(use_j, jj, ji)
+    return torch.stack([hit_i, hit_j], dim=-1), hit_dim, dist
+
+
+def cast_rays(
+    cfg: EnvConfig,
+    obstacle_words: torch.Tensor,
+    pos_wu: torch.Tensor,
+    ray_dirs: torch.Tensor,
+) -> RayHits:
+    """Batch cast through the backend ``cfg`` resolves for the device the
+    tensors live on: the CUDA kernel for ``crossing_kernel``, the plain
+    cast for ``crossing``."""
+    backend = cfg.resolved_raycast_backend(pos_wu.device.type)
+    if backend == "crossing_kernel":
+        from . import raycast_crossing_kernel as rck
+
+        hit_tu, hit_dim, dist = rck.cast_rays_crossing_kernel(
+            obstacle_words, (cfg.H, cfg.W), pos_wu, ray_dirs
+        )
+    elif backend == "crossing":
+        hit_tu, hit_dim, dist = cast_rays_crossing(
+            obstacle_words, (cfg.H, cfg.W), pos_wu, ray_dirs
+        )
+    else:
+        raise NotImplementedError(
+            f"raycast_backend {backend!r} is not ported yet ({_BACKEND_ITEM[backend]})"
+        )
+    return RayHits(ray_dirs=ray_dirs, hit_tu=hit_tu, hit_dim=hit_dim, dist_wu=dist)
+
+
+# Where each backend that is not ported yet stands in ROADMAP.md.
+_BACKEND_ITEM = {
+    "scan": "ROADMAP Queue 1 item 10",
+    "scan_flat": "ROADMAP Queue 1 item 10",
+    "analytic": "ROADMAP Queue 1 item 11",
+    "crossing_kernel_fused": "ROADMAP Queue 2 item 1",
+    "pallas": "ROADMAP Queue 2 item 2",
+    "fused": "ROADMAP Queue 2 item 3",
+}

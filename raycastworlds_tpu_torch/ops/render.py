@@ -1,0 +1,220 @@
+"""Camera-view renderer -- the RL observation -- batched over envs.
+
+Per ray: fisheye-correct the cast distance by the dot with the player
+direction, compute a wall-column height, pick a two-shade slab colour by
+(wall or goal) x (hit-face axis), and write a mirrored ceiling/wall/floor
+column.  The whole ``[B, H_pu, R]`` image is one compare-and-select over a
+row index against per-ray pads.
+
+``camera_u32`` images are built in int32 (every colour is below 2**24) and
+viewed as ``torch.uint32`` only at the public boundary
+(:func:`render_observation`), because torch's uint32 lacks the arithmetic.
+Divisions by constants divide by a tensor: on CUDA, torch divides by a CPU
+scalar through its reciprocal, which is not the IEEE quotient.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import colors
+from ..config import EnvConfig
+from . import bitmap
+from .raycast import RayHits
+
+_NOT_PORTED = {
+    "textures": "ROADMAP Queue 1 item 15",
+    "tile_grid": "ROADMAP Queue 1 item 17",
+    "top view": "ROADMAP Queue 1 item 17",
+}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} not ported yet ({_NOT_PORTED[what]})")
+
+
+def _const(value, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim tensor on ``like``'s device (float32 constants go through
+    np.float32 so both packages embed the same bits)."""
+    return torch.tensor(value, device=like.device)
+
+
+def projected_depth(player_dir_wu: torch.Tensor, hits: RayHits) -> torch.Tensor:
+    """Fisheye-corrected depth ``dist * dot(player_dir, ray_dir)``: f32[B, R]."""
+    rd = hits.ray_dirs
+    dot = player_dir_wu[:, 0:1] * rd[..., 0] + player_dir_wu[:, 1:2] * rd[..., 1]
+    return hits.dist_wu * dot
+
+
+def _hit_is_wall(wall_words, shape, hits: RayHits) -> torch.Tensor:
+    h, w = shape
+    hi = torch.clamp(hits.hit_tu[..., 0], 0, h - 1)
+    hj = torch.clamp(hits.hit_tu[..., 1], 0, w - 1)
+    return bitmap.lookup_bit(wall_words, hi * w + hj)
+
+
+def column_colors_u32(wall_words, shape, hits: RayHits) -> torch.Tensor:
+    """Per-ray slab colour, int32[B, R]: wall shades where the hit tile has
+    the wall bit, goal shades otherwise; shade by hit-face axis."""
+    is_wall = _hit_is_wall(wall_words, shape, hits)
+    dim_i = hits.hit_dim == 0
+    c = lambda v: _const(v, hits.hit_dim).to(torch.int32)  # noqa: E731
+    wall_c = torch.where(dim_i, c(colors.WALL_DIM_I), c(colors.WALL_DIM_J))
+    goal_c = torch.where(dim_i, c(colors.GOAL_DIM_I), c(colors.GOAL_DIM_J))
+    return torch.where(is_wall, wall_c, goal_c)
+
+
+def _column_pads(cfg: EnvConfig, player_dir_wu, hits: RayHits):
+    """(pad i32[B, R], height_line f32[B, R]), the column geometry shared by
+    the u32 and pal8 renderers:
+      height_line = cam_h * R / (2 * sfov * projected)
+      non-finite height -> full column
+      height_pu >= H_pu - 1 -> full wall column (pad 0)
+      else pad = (H_pu - height_pu) // 2
+    """
+    hpu = cfg.height_camera_view_pu
+    proj = projected_depth(player_dir_wu, hits)
+    num = _const(np.float32(cfg.camera_height_tile_wu * cfg.num_rays), proj)
+    denom_c = _const(np.float32(2.0 * cfg.semi_field_of_view_wu), proj)
+    height_line = num / (denom_c * proj)
+    finite = torch.isfinite(height_line)
+    # Clamp before the int cast; clamping at hpu keeps `>= hpu - 1` intact.
+    h_pu = torch.where(
+        finite,
+        torch.floor(torch.clamp(height_line, max=float(hpu))).to(torch.int32),
+        hpu,
+    )
+    pad = torch.where(h_pu >= hpu - 1, 0, (hpu - h_pu) // 2).to(torch.int32)
+    return pad, height_line
+
+
+def _composite(pad: torch.Tensor, wall_band: torch.Tensor, hpu: int,
+               ceiling: torch.Tensor, floor: torch.Tensor) -> torch.Tensor:
+    """[B, H_pu, R] image: ceiling above the pad, floor below, wall band
+    ([B, 1, R]) between; pads are already mirrored."""
+    row = torch.arange(hpu, dtype=torch.int32, device=pad.device)[None, :, None]
+    p = pad[:, None, :]
+    return torch.where(
+        row < p, ceiling, torch.where(row >= hpu - p, floor, wall_band)
+    )
+
+
+def render_camera_u32(
+    cfg: EnvConfig, wall_words, player_dir_wu, hits: RayHits
+) -> torch.Tensor:
+    """int32[B, H_pu, R] 0x00RRGGBB camera views; columns are written
+    mirrored (column ``R - 1 - i`` shows ray ``i``)."""
+    if cfg.wall_texture != "none":
+        raise _not_ported("textures")
+    pad, _ = _column_pads(cfg, player_dir_wu, hits)
+    slab = column_colors_u32(wall_words, (cfg.H, cfg.W), hits)
+    # Mirror the per-ray vectors before the [H_pu, R] broadcast.
+    pad = torch.flip(pad, dims=(1,))
+    slab = torch.flip(slab, dims=(1,))
+    i32 = lambda v: _const(v, pad).to(torch.int32)  # noqa: E731
+    return _composite(
+        pad, slab[:, None, :], cfg.height_camera_view_pu,
+        i32(colors.CEILING), i32(colors.FLOOR),
+    )
+
+
+def u32_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """0x00RRGGBB (int32 or uint32 view) -> uint8[..., 3]."""
+    img = _as_i32(img)
+    return torch.stack(
+        [(img >> 16) & 0xFF, (img >> 8) & 0xFF, img & 0xFF], dim=-1
+    ).to(torch.uint8)
+
+
+def _luma_sum(img: torch.Tensor) -> torch.Tensor:
+    img = _as_i32(img)
+    r = ((img >> 16) & 0xFF).to(torch.float32)
+    g = ((img >> 8) & 0xFF).to(torch.float32)
+    b = (img & 0xFF).to(torch.float32)
+    return 0.299 * r + 0.587 * g + 0.114 * b
+
+
+def u32_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """Rec.601 luma in [0, 1], float32."""
+    s = _luma_sum(img)
+    return s / _const(np.float32(255.0), s)
+
+
+def u32_to_gray_u8(img: torch.Tensor) -> torch.Tensor:
+    """Rec.601 luma rounded to uint8 (+0.5 then truncate)."""
+    return (_luma_sum(img) + 0.5).to(torch.uint8)
+
+
+def _as_i32(img: torch.Tensor) -> torch.Tensor:
+    return img.view(torch.int32) if img.dtype == torch.uint32 else img
+
+
+def column_colors_pal8(wall_words, shape, hits: RayHits) -> torch.Tensor:
+    """Per-ray slab palette index, uint8[B, R] -- the 1-byte twin of
+    :func:`column_colors_u32` (same predicates)."""
+    is_wall = _hit_is_wall(wall_words, shape, hits)
+    dim_i = hits.hit_dim == 0
+    c = lambda v: _const(v, hits.hit_dim).to(torch.uint8)  # noqa: E731
+    wall_c = torch.where(dim_i, c(colors.PAL_WALL_DIM_I), c(colors.PAL_WALL_DIM_J))
+    goal_c = torch.where(dim_i, c(colors.PAL_GOAL_DIM_I), c(colors.PAL_GOAL_DIM_J))
+    return torch.where(is_wall, wall_c, goal_c)
+
+
+def _slab_slots(wall_words, shape, hits: RayHits) -> torch.Tensor:
+    """Per-ray textured-slab slot i32[B, R] in ``colors.TEX_SLABS`` order
+    (wall_i, wall_j, goal_i, goal_j): same predicates as
+    :func:`column_colors_u32`, an index instead of a colour."""
+    is_wall = _hit_is_wall(wall_words, shape, hits)
+    dim_j = (hits.hit_dim == 1).to(torch.int32)
+    return torch.where(is_wall, dim_j, 2 + dim_j)
+
+
+def render_camera_pal8(
+    cfg: EnvConfig, wall_words, player_dir_wu, hits: RayHits
+) -> torch.Tensor:
+    """uint8[B, H_pu, R] palette-index camera views; lossless:
+    ``pal8_to_u32(render_camera_pal8(...)) == render_camera_u32(...)``."""
+    if cfg.wall_texture != "none":
+        raise _not_ported("textures")
+    pad, _ = _column_pads(cfg, player_dir_wu, hits)
+    slab = column_colors_pal8(wall_words, (cfg.H, cfg.W), hits)
+    pad = torch.flip(pad, dims=(1,))
+    slab = torch.flip(slab, dims=(1,))
+    u8 = lambda v: _const(v, pad).to(torch.uint8)  # noqa: E731
+    return _composite(
+        pad, slab[:, None, :], cfg.height_camera_view_pu,
+        u8(colors.PAL_CEILING), u8(colors.PAL_FLOOR),
+    )
+
+
+def pal8_to_u32(img: torch.Tensor, palette=None) -> torch.Tensor:
+    """Decode palette indices to 0x00RRGGBB, returned as a uint32 view."""
+    pal = np.asarray(colors.PALETTE_NP if palette is None else palette, np.uint32)
+    table = torch.from_numpy(pal.view(np.int32)).to(img.device)
+    return table[img.to(torch.int64)].view(torch.uint32)
+
+
+def render_observation(
+    cfg: EnvConfig, wall_words, goal_tu, player_dir_wu, hits: RayHits
+) -> torch.Tensor:
+    """Dispatch on ``cfg.obs_type``; the result has the observation space's
+    dtype (``camera_u32`` as a uint32 view)."""
+    if cfg.obs_type == "depth":
+        return torch.flip(projected_depth(player_dir_wu, hits), dims=(1,))
+    if cfg.obs_type == "tile_grid":
+        raise _not_ported("tile_grid")
+    if cfg.obs_type in ("top_u32", "top_rgb"):
+        raise _not_ported("top view")
+    if cfg.obs_type == "camera_pal8":
+        return render_camera_pal8(cfg, wall_words, player_dir_wu, hits)
+    img = render_camera_u32(cfg, wall_words, player_dir_wu, hits)
+    if cfg.obs_type == "camera_u32":
+        return img.view(torch.uint32)
+    if cfg.obs_type == "camera_rgb":
+        return u32_to_rgb(img)
+    if cfg.obs_type == "camera_gray":
+        return u32_to_gray(img)
+    if cfg.obs_type == "camera_gray_u8":
+        return u32_to_gray_u8(img)
+    raise AssertionError(cfg.obs_type)

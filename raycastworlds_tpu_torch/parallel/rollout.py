@@ -1,0 +1,73 @@
+"""Rollout drivers: Python loops over ``Env.step``, with actions drawn from
+threefry keys exactly as the JAX package's scanned rollouts draw them."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import rng
+from ..env import Env
+from ..state import EnvState
+
+
+class Trajectory(NamedTuple):
+    """Time-major [T, B, ...] rollout record."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+
+
+def rollout_random(
+    env: Env, state: EnvState, key: torch.Tensor, num_steps: int
+) -> tuple[EnvState, Trajectory]:
+    """T uniform-random steps; returns (final_state, trajectory)."""
+    key = key.to(env.device)
+    shape = (env.num_envs,) + env.game.action_shape
+    obs, actions, rewards, dones = [], [], [], []
+    for _ in range(num_steps):
+        key, k_act = rng.split(key).unbind(0)
+        a = rng.randint(k_act, shape, 0, env.game.num_actions)
+        res = env.step(state, a)
+        state = res.state
+        obs.append(res.obs)
+        actions.append(a)
+        rewards.append(res.reward)
+        dones.append(res.done)
+    return state, Trajectory(
+        obs=torch.stack(obs), action=torch.stack(actions),
+        reward=torch.stack(rewards), done=torch.stack(dones),
+    )
+
+
+def steps_per_second_program(env: Env, num_steps: int):
+    """Build the throughput program: ``run(state, key)`` takes ``num_steps``
+    random steps and reduces every observation to one float32 checksum on
+    the device, so the images are produced but never leave it.  Returns
+    ``(final_state, checksum)``; the caller's host read of the checksum
+    ends a timed region."""
+
+    def run(state: EnvState, key: torch.Tensor):
+        # All T*B actions in one threefry draw, as the JAX program does.
+        actions = rng.randint(
+            key.to(env.device),
+            (num_steps, env.num_envs) + env.game.action_shape,
+            0, env.game.num_actions,
+        )
+        acc = torch.zeros((), dtype=torch.float32, device=env.device)
+        for a in actions:
+            res = env.step(state, a)
+            obs = res.obs
+            if obs.dtype == torch.uint32:
+                # colours are < 2**24, so the int32 view converts exactly
+                chk = (obs.view(torch.int32).to(torch.float32) * 2.0**-24).sum()
+            else:
+                chk = obs.to(torch.float32).sum()
+            acc = acc + chk + res.reward.sum()
+            state = res.state
+        return state, acc
+
+    return run

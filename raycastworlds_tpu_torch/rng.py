@@ -1,0 +1,136 @@
+"""Threefry-2x32 counter-based random numbers in plain torch integer ops.
+
+The counterpart of ``jax.random`` as the engine uses it, reproducing JAX's
+bits exactly (JAX 0.9 with ``jax_threefry_partitionable=True``, its
+default): ``PRNGKey``, ``split``, ``randint`` and float32 ``uniform``.  All of
+the engine's randomness enters through these draws, with per-env keys, which
+is what makes trajectories reproducible per env and independent of the batch
+size.
+
+A key is two uint32 words held as int64 values in ``[0, 2**32)`` (torch has
+no usable uint32 arithmetic), shape ``[..., 2]``.  Every function accepts a
+batch of keys: the leading dimensions of ``key`` stay leading dimensions of
+the result, and each key draws exactly what ``jax.random`` would draw for it
+alone.  Everything here is ordinary tensor arithmetic and runs on any device.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & _MASK
+
+
+def threefry2x32(k0, k1, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block cipher (20 rounds), elementwise over
+    broadcastable int64 operands holding uint32 values."""
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & _MASK
+    x1 = (x1 + k1) & _MASK
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for a seed in the int32 range: the key
+    words are (0, seed as uint32)."""
+    seed = int(seed)
+    if not -(2**31) <= seed < 2**31:
+        raise ValueError("seed must fit in int32")
+    return torch.tensor([0, seed & _MASK], dtype=torch.int64, device=device)
+
+
+def _counts(shape: Tuple[int, ...], device) -> torch.Tensor:
+    """Row-major iota over ``shape``: the counter words of one draw (the
+    high counter word is 0 for every size this engine draws)."""
+    n = 1
+    for s in shape:
+        n *= s
+    return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+
+
+def _hash(key: torch.Tensor, shape: Tuple[int, ...]):
+    """Both output words of threefry over the iota of ``shape``, per key:
+    each result is ``[*key.shape[:-1], *shape]``."""
+    lead = key.shape[:-1]
+    expand = (...,) + (None,) * len(shape)
+    k0 = key[..., 0][expand]
+    k1 = key[..., 1][expand]
+    counts = _counts(shape, key.device).reshape((1,) * len(lead) + shape)
+    return threefry2x32(k0, k1, torch.zeros_like(counts), counts)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``[..., 2]`` keys -> ``[..., num, 2]``."""
+    b0, b1 = _hash(key, (num,))
+    return torch.stack([b0, b1], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """32 random bits per element (int64 in ``[0, 2**32)``), shape
+    ``[*key.shape[:-1], *shape]``."""
+    b0, b1 = _hash(key, tuple(shape))
+    return b0 ^ b1
+
+
+def uniform(
+    key: torch.Tensor,
+    shape: Sequence[int] = (),
+    minval: float = 0.0,
+    maxval: float = 1.0,
+) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits fill the mantissa of a float in [1, 2), minus 1, then scaled."""
+    bits = random_bits(key, shape)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+IntBound = Union[int, Sequence[int]]
+
+
+def randint(
+    key: torch.Tensor, shape: Sequence[int], minval: IntBound, maxval: IntBound
+) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype=int32)``.
+
+    ``minval``/``maxval`` are ints or int sequences that broadcast against
+    ``shape`` (as in the goal draw, bounds ``[1, 1]`` to ``[H-1, W-1]``).
+    JAX draws two 32-bit words per element from ``split(key)`` and reduces
+    them modulo the span with a double-width remainder identity.
+    """
+    shape = tuple(shape)
+    dev = key.device
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    for v in (lo, hi):
+        if v.numel() and not bool(
+            ((v >= -(2**31)) & (v < 2**31)).all()
+        ):
+            raise ValueError("randint bounds must fit in int32")
+    k = split(key, 2)
+    higher = random_bits(k[..., 0, :], shape)
+    lower = random_bits(k[..., 1, :], shape)
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _MASK)
+    # uint32 arithmetic: every product wraps at 2**32, as in JAX.
+    multiplier = (2**16) % span
+    multiplier = ((multiplier * multiplier) & _MASK) % span
+    offset = ((higher % span) * multiplier) & _MASK
+    offset = ((offset + lower % span) & _MASK) % span
+    return (lo + offset).to(torch.int32)

@@ -1,0 +1,95 @@
+"""The port's EnvConfig: same validation and array-equal host LUTs."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import raycastworlds_tpu as rcw
+import raycastworlds_tpu_torch as rt
+
+BAD = [
+    dict(height_tile_map_tu=2),
+    dict(width_tile_map_tu=2),
+    dict(player_radius_wu=0.5),
+    dict(player_radius_wu=0.0),
+    dict(num_rays=1),
+    dict(num_directions=0),
+    dict(obs_type="camera_bgr"),
+    dict(obs_type="camera_pal8", wall_texture="xor", texture_cells=41),
+    dict(raycast_backend="warp"),
+    dict(wall_texture="marble"),
+    dict(dtype="float16"),
+    dict(texture_cells=1),
+    dict(continuous_heading=True, raycast_backend="crossing_kernel"),
+    dict(turn_increment_au=0.0),
+]
+
+
+@pytest.mark.parametrize("kw", BAD, ids=[str(k) for k in BAD])
+def test_same_value_errors(kw):
+    with pytest.raises(ValueError) as want:
+        rcw.EnvConfig(**kw)
+    with pytest.raises(ValueError) as got:
+        rt.EnvConfig(**kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_fields_match():
+    names = lambda c: [(f.name, f.default) for f in dataclasses.fields(c)]  # noqa: E731
+    assert names(rt.EnvConfig) == names(rcw.EnvConfig)
+
+
+CONFIGS = [
+    dict(),
+    dict(num_rays=64, height_camera_view_pu=48),
+    dict(height_tile_map_tu=13, width_tile_map_tu=9, num_directions=96,
+         num_rays=37, semi_field_of_view_wu=0.5),
+    dict(height_tile_map_tu=48, width_tile_map_tu=48, num_rays=128),
+]
+
+
+@pytest.mark.parametrize("kw", CONFIGS, ids=[str(k) for k in CONFIGS])
+@pytest.mark.parametrize(
+    "lut",
+    ["directions_wu", "ray_fan_lut", "ray_fan_lut_flipped", "palette_np",
+     "border_wall_words"],
+)
+def test_luts_array_equal(kw, lut):
+    want = getattr(rcw.EnvConfig(**kw), lut)
+    got = getattr(rt.EnvConfig(**kw), lut)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_derived_shapes_match():
+    for obs in ("camera_u32", "camera_rgb", "camera_pal8", "depth", "top_u32"):
+        a = rcw.EnvConfig(obs_type=obs, num_rays=32)
+        b = rt.EnvConfig(obs_type=obs, num_rays=32)
+        assert a.obs_shape == b.obs_shape
+        assert a.dda_steps == b.dda_steps
+        assert a.player_radius_pu == b.player_radius_pu
+
+
+def test_auto_backend_is_device_aware():
+    cfg = rt.EnvConfig()
+    assert cfg.resolved_raycast_backend("cpu") == "crossing"
+    assert cfg.resolved_raycast_backend("cuda") == "crossing_kernel"
+    # every float32 discrete-heading shape, small fans and big maps included
+    for kw in (dict(num_rays=16),
+               dict(height_tile_map_tu=64, width_tile_map_tu=64)):
+        assert rt.EnvConfig(**kw).resolved_raycast_backend("cuda") == "crossing_kernel"
+    for kw in (dict(dtype="float64"), dict(continuous_heading=True)):
+        assert rt.EnvConfig(**kw).resolved_raycast_backend("cuda") == "crossing"
+    explicit = rt.EnvConfig(raycast_backend="crossing")
+    assert explicit.resolved_raycast_backend("cuda") == "crossing"
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(raycast_backend="scan"), dict(raycast_backend="crossing_kernel_fused"),
+     dict(dtype="float64"), dict(continuous_heading=True)],
+)
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rt.SingleRoom(rt.EnvConfig(**kw))

@@ -1,0 +1,158 @@
+"""The port's crossing casts vs the JAX package (exact).
+
+* the plain cast (``ops/raycast.cast_rays_crossing``) against the JAX
+  package's XLA ``cast_rays_crossing``;
+* the kernel wrapper on CPU tensors (its plain version) against the JAX
+  package's Pallas kernel in interpret mode;
+* on a CUDA card, the CUDA kernel against its plain version.
+
+The fuzz maps are those of tests/test_crossing.py: random walls at density
+0.25 inside a border, random interior origins and directions.  XLA on the
+CPU contracts ``p + t*d`` into an FMA where torch rounds twice; that can
+flip an entered tile only where the cross coordinate lands exactly on a
+grid line, which random inputs do not hit, so the JAX comparisons use
+random directions plus exact-zero components (where ``t*0`` is exact).
+
+The JAX package is imported inside the tests that compare with it, so that
+the CUDA case also runs on a GPU machine without JAX:
+``python -m pytest tests/test_torch_crossing.py -m cuda --noconftest``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raycastworlds_tpu_torch.ops import raycast, raycast_crossing_kernel as rck
+from raycastworlds_tpu_torch.ops.bitmap import pack_bits_np
+
+
+def fuzz_case(h, w, b, r, seed, diagonal=False):
+    """(words u32[B, NW], pos f32[B, 2], dirs f32[B, R, 2]) on random maps,
+    with a share of rays that have an exact-zero component (and, with
+    ``diagonal``, exact 45-degree rays from integer positions, which sit on
+    grid corners)."""
+    rng = np.random.RandomState(seed)
+    maps = []
+    for _ in range(b):
+        m = rng.rand(h, w) < 0.25
+        m[0, :] = m[-1, :] = True
+        m[:, 0] = m[:, -1] = True
+        maps.append(pack_bits_np(m))
+    words = np.stack(maps)
+    pos = rng.uniform([1.1, 1.1], [h - 1.1, w - 1.1], size=(b, 2)).astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi, size=(b, r))
+    dirs = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    # gridline sliding: integer positions, axis-parallel rays
+    nb = max(b // 4, 1)
+    pos[:nb] = np.floor(pos[:nb])
+    axis = np.array([[1, 0], [-1, 0], [0, 1], [0, -1]], np.float32)
+    dirs[:nb, : min(r, 8)] = np.resize(axis, (min(r, 8), 2))
+    dirs[nb : 2 * nb, :4] = axis  # axis-parallel from non-integer positions
+    if diagonal:
+        s = np.float32(np.sqrt(0.5))
+        diag = np.array([[s, s], [s, -s], [-s, s], [-s, -s]], np.float32)
+        dirs[:nb, 8:12] = diag
+    return words, pos, dirs
+
+
+def _torch(words, pos, dirs, device="cpu"):
+    return (
+        torch.from_numpy(words.view(np.int32).copy()).to(device),
+        torch.from_numpy(pos.copy()).to(device),
+        torch.from_numpy(dirs.copy()).to(device),
+    )
+
+
+def _np(out):
+    return [x.detach().cpu().numpy() for x in out]
+
+
+SHAPES = [(8, 16), (13, 9), (24, 40), (48, 48)]
+
+
+@pytest.mark.parametrize("h,w", SHAPES)
+def test_plain_cast_matches_jax_crossing(h, w):
+    import jax
+    import jax.numpy as jnp
+    from raycastworlds_tpu.ops import raycast as jraycast
+
+    words, pos, dirs = fuzz_case(h, w, 8, 64, seed=0)
+    want = jax.jit(jax.vmap(
+        lambda ww, p, d: jraycast.cast_rays_crossing(ww, (h, w), p, d)
+    ))(jnp.asarray(words), jnp.asarray(pos), jnp.asarray(dirs))
+    wt, pt, dt = _torch(words, pos, dirs)
+    got = raycast.cast_rays_crossing(wt, (h, w), pt, dt)
+    for g, wnt in zip(_np(got), want):
+        np.testing.assert_array_equal(g, np.asarray(wnt))
+
+
+@pytest.mark.parametrize("h,w", SHAPES[:3])
+def test_kernel_wrapper_cpu_matches_pallas_interpret(h, w):
+    import jax
+    import jax.numpy as jnp
+    from raycastworlds_tpu.ops import raycast as jraycast
+    from raycastworlds_tpu.ops import raycast_crossing_kernel as jrck
+
+    words, pos, dirs = fuzz_case(h, w, 8, 64, seed=1)
+    args = (jnp.asarray(words), jnp.asarray(pos), jnp.asarray(dirs))
+    pallas = jrck.cast_rays_crossing_kernel(
+        args[0], (h, w), *args[1:], interpret=True
+    )
+    xla = jax.jit(jax.vmap(
+        lambda ww, p, d: jraycast.cast_rays_crossing(ww, (h, w), p, d)
+    ))(*args)
+    wt, pt, dt = _torch(words, pos, dirs)
+    before = rck.cast_rays_crossing_kernel.launches
+    got = _np(rck.cast_rays_crossing_kernel(wt, (h, w), pt, dt))
+    assert rck.cast_rays_crossing_kernel.launches == before  # CPU: no launch
+    for want in (pallas, xla):
+        for g, wnt in zip(got, want):
+            np.testing.assert_array_equal(g, np.asarray(wnt))
+
+
+@pytest.mark.parametrize("h,w", SHAPES)
+def test_kernel_ref_matches_plain_cast(h, w):
+    """Both port versions round identically, so they agree even on rays
+    through grid corners."""
+    words, pos, dirs = fuzz_case(h, w, 5, 37, seed=2, diagonal=True)
+    wt, pt, dt = _torch(words, pos, dirs)
+    a = raycast.cast_rays_crossing(wt, (h, w), pt, dt)
+    b = rck.cast_rays_crossing_kernel_ref(wt, (h, w), pt, dt)
+    for x, y in zip(_np(a), _np(b)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_wrapper_rejects_bad_inputs():
+    words, pos, dirs = fuzz_case(8, 16, 2, 4, seed=3)
+    wt, pt, dt = _torch(words, pos, dirs)
+    with pytest.raises(TypeError):
+        rck.cast_rays_crossing_kernel(wt.to(torch.int64), (8, 16), pt, dt)
+    with pytest.raises(TypeError):
+        rck.cast_rays_crossing_kernel(wt, (8, 16), pt.double(), dt)
+    with pytest.raises(ValueError):
+        rck.cast_rays_crossing_kernel(wt, (9, 16), pt, dt)
+    with pytest.raises(ValueError):
+        rck.cast_rays_crossing_kernel(wt, (8, 16), pt[:1], dt)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "h,w,b,r", [(8, 16, 64, 512), (13, 9, 7, 100), (24, 40, 16, 129), (48, 48, 8, 256)]
+)
+def test_cuda_kernel_matches_plain(cuda_device, h, w, b, r):
+    words, pos, dirs = fuzz_case(h, w, b, r, seed=4, diagonal=True)
+    args = _torch(words, pos, dirs, cuda_device)
+    before = rck.cast_rays_crossing_kernel.launches
+    got = rck.cast_rays_crossing_kernel(args[0], (h, w), *args[1:])
+    torch.cuda.synchronize()
+    assert rck.cast_rays_crossing_kernel.launches == before + 1
+    want = rck.cast_rays_crossing_kernel_ref(args[0], (h, w), *args[1:])
+    for g, wnt in zip(_np(got), _np(want)):
+        np.testing.assert_array_equal(g, wnt)

@@ -1,0 +1,28 @@
+"""The port imports neither JAX nor the JAX package (the GPU machine has no
+JAX).  Checked in a fresh interpreter, since the test process imports both."""
+
+import subprocess
+import sys
+
+_PROBE = """
+import sys
+import raycastworlds_tpu_torch as rt
+import raycastworlds_tpu_torch.cuda_build
+import raycastworlds_tpu_torch.ops.raycast_crossing_kernel
+import raycastworlds_tpu_torch.parallel.rollout
+env = rt.Env(rt.SingleRoom(rt.EnvConfig(num_rays=8, height_camera_view_pu=8)), num_envs=2)
+state, obs = env.reset(rt.rng.PRNGKey(0))
+env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "raycastworlds_tpu"))
+print(",".join(bad))
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"port imported: {out.stdout.strip()}"

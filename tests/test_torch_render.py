@@ -1,0 +1,178 @@
+"""The port's camera renders vs the JAX package's, on fixed cast hits.
+
+Images (u32, pal8, rgb, gray_u8) and the palette decode are exact.  The
+float observations (``depth``, ``camera_gray``) are exact against a numpy
+evaluation that rounds every mul and add, as the port does; against the
+JAX package they are held to ``MAX_ULP``, because XLA on the CPU
+contracts ``a*b + c`` into an FMA (measured on this package's own
+expressions: ``pdx*dx + pdy*dy`` and the luma weights).  The luma is two
+contracted mul+adds and a divide, each up to one rounding apart; 3 ulp was
+the largest difference measured over random colours.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raycastworlds_tpu as rcw
+import raycastworlds_tpu_torch as rt
+from raycastworlds_tpu.ops import raycast as jraycast
+from raycastworlds_tpu.ops import render as jrender
+from raycastworlds_tpu.ops.bitmap import pack_bits_np
+from raycastworlds_tpu_torch.ops import raycast, render
+
+MAX_ULP = 4
+
+OBS = ["camera_u32", "camera_pal8", "camera_rgb", "camera_gray",
+       "camera_gray_u8", "depth"]
+
+
+def _case(kw, b=6, seed=0):
+    """Config pair, fixed hits from the JAX crossing cast on random maps,
+    and the per-env inputs of the renderer, as numpy."""
+    jcfg = rcw.EnvConfig(**kw)
+    h, w = jcfg.H, jcfg.W
+    r = np.random.default_rng(seed)
+    walls = r.random((b, h, w)) < 0.2
+    walls[:, 0, :] = walls[:, -1, :] = True
+    walls[:, :, 0] = walls[:, :, -1] = True
+    goal = r.integers(1, [h - 1, w - 1], size=(b, 2)).astype(np.int32)
+    walls[np.arange(b), goal[:, 0], goal[:, 1]] = False
+    obst = walls.copy()
+    obst[np.arange(b), goal[:, 0], goal[:, 1]] = True
+    dir_au = r.integers(0, jcfg.num_directions, size=b).astype(np.int32)
+    pos = (r.integers(1, [h - 1, w - 1], size=(b, 2)) + 0.5).astype(np.float32)
+    dirs = jcfg.ray_fan_lut[dir_au]
+    pdir = jcfg.directions_wu[dir_au]
+    hit_tu, hit_dim, dist = jax.vmap(
+        lambda ww, p, d: jraycast.cast_rays_crossing(ww, (h, w), p, d)
+    )(jnp.asarray(pack_bits_np(obst)), jnp.asarray(pos), jnp.asarray(dirs))
+    return dict(
+        jcfg=jcfg, cfg=rt.EnvConfig(**kw), wall_words=pack_bits_np(walls),
+        goal=goal, pdir=pdir, dirs=dirs, hit_tu=np.asarray(hit_tu),
+        hit_dim=np.asarray(hit_dim), dist=np.asarray(dist),
+    )
+
+
+def _jax_obs(c, obs_type):
+    cfg = dataclasses.replace(c["jcfg"], obs_type=obs_type)
+
+    def one(ww, g, pd, d, ht, hd, ds):
+        hits = jraycast.RayHits(ray_dirs=d, hit_tu=ht, hit_dim=hd, dist_wu=ds)
+        return jrender.render_observation(cfg, ww, g, pd, hits)
+
+    args = [c[k] for k in ("wall_words", "goal", "pdir", "dirs", "hit_tu",
+                           "hit_dim", "dist")]
+    return np.asarray(jax.jit(jax.vmap(one))(*map(jnp.asarray, args)))
+
+
+def _torch_obs(c, obs_type):
+    cfg = dataclasses.replace(c["cfg"], obs_type=obs_type)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    hits = raycast.RayHits(ray_dirs=t(c["dirs"]), hit_tu=t(c["hit_tu"]),
+                           hit_dim=t(c["hit_dim"]), dist_wu=t(c["dist"]))
+    words = t(c["wall_words"].view(np.int32))
+    return render.render_observation(cfg, words, t(c["goal"]), t(c["pdir"]), hits)
+
+
+def _np_depth(c):
+    """Projected depth, every op rounded to float32 (numpy, unfused)."""
+    pd, d = c["pdir"], c["dirs"]
+    dot = pd[:, None, 0] * d[..., 0] + pd[:, None, 1] * d[..., 1]
+    return np.flip(c["dist"] * dot, axis=1)
+
+
+def _np_gray(u32):
+    r = ((u32 >> 16) & 0xFF).astype(np.float32)
+    g = ((u32 >> 8) & 0xFF).astype(np.float32)
+    b = (u32 & 0xFF).astype(np.float32)
+    s = np.float32(0.299) * r + np.float32(0.587) * g + np.float32(0.114) * b
+    return s / np.float32(255.0)
+
+
+CONFIGS = [
+    dict(num_rays=64, height_camera_view_pu=48),
+    dict(height_tile_map_tu=13, width_tile_map_tu=9, num_rays=37,
+         height_camera_view_pu=31, semi_field_of_view_wu=0.5),
+]
+
+
+@pytest.mark.parametrize("kw", CONFIGS, ids=["default_small", "odd"])
+@pytest.mark.parametrize("obs_type", OBS)
+def test_render_observation(kw, obs_type):
+    c = _case(kw)
+    got_t = _torch_obs(c, obs_type)
+    assert got_t.dtype == rt.Env(rt.SingleRoom(
+        rt.EnvConfig(**{**kw, "obs_type": obs_type}))).observation_space.dtype
+    got = got_t.numpy()
+    want = _jax_obs(c, obs_type)
+    assert got.shape == want.shape
+    if obs_type == "depth":
+        np.testing.assert_array_equal(got, _np_depth(c))
+        np.testing.assert_array_max_ulp(got, want, maxulp=MAX_ULP)
+    elif obs_type == "camera_gray":
+        u32 = _torch_obs(c, "camera_u32").numpy()
+        np.testing.assert_array_equal(got, _np_gray(u32))
+        np.testing.assert_array_max_ulp(got, want, maxulp=MAX_ULP)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kw", CONFIGS, ids=["default_small", "odd"])
+def test_pal8_decodes_to_u32(kw):
+    c = _case(kw, seed=1)
+    pal = _torch_obs(c, "camera_pal8")
+    u32 = _torch_obs(c, "camera_u32")
+    dec = render.pal8_to_u32(pal)
+    assert dec.dtype == torch.uint32
+    np.testing.assert_array_equal(dec.numpy(), u32.numpy())
+    want = np.asarray(jax.jit(jrender.pal8_to_u32)(jnp.asarray(pal.numpy())))
+    np.testing.assert_array_equal(dec.numpy(), want)
+    np.testing.assert_array_equal(
+        rt.colors.pal8_to_u32_np(pal.numpy()), u32.numpy()
+    )
+
+
+def test_conversions_on_all_colours():
+    img = np.random.default_rng(5).integers(0, 2**24, size=(4, 33, 17)).astype(np.uint32)
+    t = torch.from_numpy(img.view(np.int32).copy())
+    np.testing.assert_array_equal(render.u32_to_rgb(t).numpy(),
+                                  np.asarray(jrender.u32_to_rgb(jnp.asarray(img))))
+    np.testing.assert_array_equal(render.u32_to_rgb(t).numpy(), rt.colors.u32_to_rgb(img))
+    np.testing.assert_array_equal(render.u32_to_gray_u8(t).numpy(),
+                                  np.asarray(jrender.u32_to_gray_u8(jnp.asarray(img))))
+    np.testing.assert_array_equal(render.u32_to_gray(t).numpy(), _np_gray(img))
+    np.testing.assert_array_max_ulp(
+        render.u32_to_gray(t).numpy(),
+        np.asarray(jax.jit(jrender.u32_to_gray)(jnp.asarray(img))), maxulp=MAX_ULP,
+    )
+
+
+def test_slab_slots():
+    c = _case(CONFIGS[0], seed=2)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    hits = raycast.RayHits(ray_dirs=t(c["dirs"]), hit_tu=t(c["hit_tu"]),
+                           hit_dim=t(c["hit_dim"]), dist_wu=t(c["dist"]))
+    got = render._slab_slots(t(c["wall_words"].view(np.int32)), (8, 16), hits)
+
+    def one(ww, d, ht, hd, ds):
+        h = jraycast.RayHits(ray_dirs=d, hit_tu=ht, hit_dim=hd, dist_wu=ds)
+        return jrender._slab_slots(ww, (8, 16), h)
+
+    want = jax.vmap(one)(*map(jnp.asarray, (c["wall_words"], c["dirs"], c["hit_tu"],
+                                            c["hit_dim"], c["dist"])))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("what", ["tile_grid", "top_u32", "texture"])
+def test_unported_render_paths_raise(what):
+    c = _case(CONFIGS[0])
+    if what == "texture":
+        c["cfg"] = dataclasses.replace(c["cfg"], wall_texture="checker")
+        what = "camera_u32"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _torch_obs(c, what)
