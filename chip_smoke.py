@@ -4,21 +4,26 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``raycastworlds_tpu_torch/csrc`` and drives the
-port's main path, ``Env(SingleRoom(EnvConfig()))`` with dense auto-reset, on
-the card.  Phases, each printing a line:
+port's main paths, ``Env(SingleRoom(EnvConfig(raycast_backend=B)))`` with
+dense auto-reset, on the card.  Phases, each printing a line:
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. the kernel build and its seconds;
-3. the crossing-cast kernel against its plain PyTorch version on the card,
-   exact on all four outputs, at the reference-default shape (4096 envs x
-   512 rays, 8x16 map), at maps 13x9, 24x40 and 48x48, and on rays with an
-   exact-zero direction component from integer positions; plus both times;
+3. each kernel against its plain PyTorch version on the card, exact on
+   every output: at the reference-default shape (4096 envs x 512 rays x 256
+   px, 8x16 map), at maps 13x9, 24x40 and 48x48, and on sliding inputs
+   (integer positions and axis-parallel rays); the DDA kernels also with
+   a truncated march, the fused u32 render with and without block words;
+   plus each kernel's time and its plain version's;
 4. the golden frame of tests/data/golden_frames.npz ("single_room", pinned
-   from the JAX package) reproduced through the kernel;
-5. the main path: 4096 envs, 512 rays x 256 px, camera_u32, reset plus 64
-   steps of the throughput program, through the kernel (launch count = casts
-   made) and through the plain crossing cast; final states and checksums
-   identical; env-steps/s of both.  Then camera_pal8 at 1024 envs.
+   from the JAX package) reproduced through the crossing kernel;
+5. the main paths, reset plus 64 steps of the throughput program at 4096
+   envs, through the kernels (launch count = observations made) and through
+   the plain paths, with identical final states and checksums, and the
+   env-steps/s of each run: ``auto`` (the crossing kernel) against
+   ``crossing``; ``fused`` and ``pallas`` against ``scan`` (camera_u32);
+   ``crossing_kernel_fused`` against ``crossing`` and ``crossing_kernel``
+   (camera_pal8); and ``auto`` in camera_pal8 at 1024 envs.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: there is no
@@ -39,13 +44,43 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-KERNEL_SOURCE = "raycastworlds_tpu_torch/csrc/crossing_cast.cu"
-KERNEL_REPLACES = "raycastworlds_tpu/ops/raycast_crossing_kernel.py:113"
+STEPS = 64
+# name -> (source, the Pallas body it replaces)
+KERNELS = {
+    "crossing_cast": ("raycastworlds_tpu_torch/csrc/crossing_cast.cu",
+                      "raycastworlds_tpu/ops/raycast_crossing_kernel.py:113"),
+    "crossing_render_pal8": ("raycastworlds_tpu_torch/csrc/crossing_render_pal8.cu",
+                             "raycastworlds_tpu/ops/raycast_crossing_kernel.py:175"),
+    "dda_cast": ("raycastworlds_tpu_torch/csrc/dda_cast.cu",
+                 "raycastworlds_tpu/ops/raycast_pallas.py:30"),
+    "dda_render_u32": ("raycastworlds_tpu_torch/csrc/dda_render_u32.cu",
+                       "raycastworlds_tpu/ops/render_fused.py:62"),
+}
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def wrappers():
+    """name -> the kernel's wrapper (which carries ``.launches``)."""
+    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
+    from raycastworlds_tpu_torch.ops import raycast_pallas, render_fused
+
+    return {
+        "crossing_cast": rck.cast_rays_crossing_kernel,
+        "crossing_render_pal8": rck.cast_render_pal8_kernel,
+        "dda_cast": raycast_pallas.cast_rays_pallas_batched,
+        "dda_render_u32": render_fused.render_camera_fused_batched,
+    }
+
+
+def random_maps(rng, b, h, w, density):
+    maps = rng.random((b, h, w)) < density
+    maps[:, 0, :] = maps[:, -1, :] = True
+    maps[:, :, 0] = maps[:, :, -1] = True
+    return maps
 
 
 def fuzz_inputs(h, w, b, r, seed, device, sliding=False):
@@ -58,10 +93,7 @@ def fuzz_inputs(h, w, b, r, seed, device, sliding=False):
     from raycastworlds_tpu_torch.ops.bitmap import pack_bits_np
 
     rng = np.random.default_rng(seed)
-    maps = rng.random((b, h, w)) < 0.25
-    maps[:, 0, :] = maps[:, -1, :] = True
-    maps[:, :, 0] = maps[:, :, -1] = True
-    words = pack_bits_np(maps).view(np.int32)
+    words = pack_bits_np(random_maps(rng, b, h, w, 0.25)).view(np.int32)
     if sliding:
         pos = rng.integers(1, [h - 1, w - 1], size=(b, 2)).astype(np.float32)
         axis = np.array([[1, 0], [-1, 0], [0, 1], [0, -1]], np.float32)
@@ -74,30 +106,130 @@ def fuzz_inputs(h, w, b, r, seed, device, sliding=False):
     return t(words), t(pos), t(dirs)
 
 
-def compare_kernel(h, w, b, r, seed, device, sliding=False) -> float:
-    """Kernel vs plain version on one input set; returns the max abs error
-    over all four outputs (required to be 0)."""
+def render_inputs(h, w, b, r, hpu, seed, device, sliding=False):
+    """Inputs of the fused render kernels as a SingleRoom-like world gives
+    them: random walls (density 0.25) inside a border, block tiles on 15%
+    of the other tiles, a goal tile on an empty interior tile (obstacles =
+    walls | blocks | goal), random interior positions and headings, each
+    heading's player direction and mirror-ordered ray fan (R rays, 128
+    headings), and the render constants.  ``sliding``: integer positions, axis headings with
+    exact axis player directions, and the first 8 rays of every fan along
+    the heading (an exact-zero component)."""
     import torch
 
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.ops import render
+    from raycastworlds_tpu_torch.ops.bitmap import pack_bits_np
+
+    cfg = rt.EnvConfig(height_tile_map_tu=h, width_tile_map_tu=w, num_rays=r,
+                       height_camera_view_pu=hpu)
+    rng = np.random.default_rng(seed)
+    walls = random_maps(rng, b, h, w, 0.25)
+    goal = rng.integers(1, [h - 1, w - 1], size=(b, 2)).astype(np.int32)
+    walls[np.arange(b), goal[:, 0], goal[:, 1]] = False
+    blocks = (rng.random((b, h, w)) < 0.15) & ~walls
+    blocks[np.arange(b), goal[:, 0], goal[:, 1]] = False
+    obst = walls | blocks
+    obst[np.arange(b), goal[:, 0], goal[:, 1]] = True
+    if sliding:
+        pos = rng.integers(1, [h - 1, w - 1], size=(b, 2)).astype(np.float32)
+        q = rng.integers(0, 4, size=b)
+        dir_au = q * (cfg.num_directions // 4)
+        pdir = np.array([[1, 0], [0, 1], [-1, 0], [0, -1]], np.float32)[q]
+        dirs = cfg.ray_fan_lut_flipped[dir_au].copy()
+        dirs[:, :8] = pdir[:, None, :]
+    else:
+        pos = rng.uniform([1.0, 1.0], [h - 1.0, w - 1.0], size=(b, 2)).astype(np.float32)
+        dir_au = rng.integers(0, cfg.num_directions, size=b)
+        pdir = cfg.directions_wu[dir_au]
+        dirs = cfg.ray_fan_lut_flipped[dir_au]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    num, denom = render.render_constants(cfg)
+    return dict(
+        obstacle_words=t(pack_bits_np(obst).view(np.int32)),
+        wall_words=t(pack_bits_np(walls).view(np.int32)),
+        block_words=t(pack_bits_np(blocks).view(np.int32)),
+        shape=(h, w), pos=t(pos), pdir=t(pdir), dirs=t(dirs), goal=t(goal),
+        hpu=hpu, num=num, denom=denom,
+    )
+
+
+def max_err(got, want) -> float:
+    """Max abs difference over the outputs; raises unless all are equal."""
+    import torch
+
+    errs = [0.0 if torch.equal(g, w) else float((g.double() - w.double()).abs().max())
+            for g, w in zip(got, want)]
+    return max(errs)
+
+
+def kernel_vs_plain(name, label, kernel, plain) -> float:
+    """Run the kernel and its plain version on the same inputs; require
+    every output equal; return the max abs error (0)."""
+    import torch
+
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max_err(got, want)
+    check(err == 0.0 and all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{name} != plain at {label}: max err {err}")
+    return err
+
+
+def compare_crossing(h, w, b, r, seed, device, sliding=False) -> float:
     from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
     words, pos, dirs = fuzz_inputs(h, w, b, r, seed, device, sliding)
-    k_tu, k_dim, k_dist = rck.cast_rays_crossing_kernel(words, (h, w), pos, dirs)
-    p_tu, p_dim, p_dist = rck.cast_rays_crossing_kernel_ref(words, (h, w), pos, dirs)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    err = max(
-        float((k_dist - p_dist).abs().max()),
-        float((k_tu - p_tu).abs().max()),
-        float((k_dim - p_dim).abs().max()),
+    return kernel_vs_plain(
+        "crossing_cast", f"{h}x{w} B={b} R={r} sliding={sliding}",
+        lambda: rck.cast_rays_crossing_kernel(words, (h, w), pos, dirs),
+        lambda: rck.cast_rays_crossing_kernel_ref(words, (h, w), pos, dirs),
     )
-    same = (
-        torch.equal(k_dist, p_dist) and torch.equal(k_tu, p_tu)
-        and torch.equal(k_dim, p_dim)
+
+
+def compare_dda(h, w, b, r, seed, device, sliding=False, max_steps=None) -> float:
+    from raycastworlds_tpu_torch.ops import raycast, raycast_pallas
+
+    words, pos, dirs = fuzz_inputs(h, w, b, r, seed, device, sliding)
+    steps = h + w if max_steps is None else max_steps
+    return kernel_vs_plain(
+        "dda_cast", f"{h}x{w} B={b} R={r} sliding={sliding} steps={steps}",
+        lambda: raycast_pallas.cast_rays_pallas_batched(words, (h, w), pos, dirs, steps),
+        lambda: raycast.cast_rays_scan(words, (h, w), pos, dirs, steps),
     )
-    check(same and err == 0.0,
-          f"kernel != plain at {h}x{w}, B={b}, R={r}, sliding={sliding}: max err {err}")
-    return err
+
+
+def compare_pal8(h, w, b, r, hpu, seed, device, sliding=False) -> float:
+    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
+
+    x = render_inputs(h, w, b, r, hpu, seed, device, sliding)
+    args = (x["obstacle_words"], x["shape"], x["pos"], x["dirs"], x["pdir"],
+            x["goal"], hpu, x["num"], x["denom"])
+    return kernel_vs_plain(
+        "crossing_render_pal8", f"{h}x{w} B={b} R={r} hpu={hpu} sliding={sliding}",
+        lambda: rck.cast_render_pal8_kernel(*args),
+        lambda: rck.cast_render_pal8_kernel_ref(*args),
+    )
+
+
+def compare_fused(h, w, b, r, hpu, seed, device, sliding=False, max_steps=None,
+                  blocks=False) -> float:
+    from raycastworlds_tpu_torch.ops import render_fused
+
+    x = render_inputs(h, w, b, r, hpu, seed, device, sliding)
+    steps = h + w if max_steps is None else max_steps
+    args = (x["obstacle_words"], x["wall_words"], x["shape"], x["pos"], x["pdir"],
+            x["dirs"], steps, hpu, x["num"], x["denom"],
+            x["block_words"] if blocks else None)
+    return kernel_vs_plain(
+        "dda_render_u32",
+        f"{h}x{w} B={b} R={r} hpu={hpu} sliding={sliding} steps={steps} blocks={blocks}",
+        lambda: render_fused.render_camera_fused_batched(*args),
+        lambda: render_fused.render_camera_fused_batched_ref(*args),
+    )
 
 
 def time_ms(fn, reps: int) -> float:
@@ -114,6 +246,76 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_phase(device):
+    """Every kernel against its plain version on every input set, then the
+    times at the reference-default shape.  Returns {name: (max err, kernel
+    ms, plain ms)}."""
+    from raycastworlds_tpu_torch.ops import raycast, raycast_pallas, render_fused
+    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
+
+    maps = ((13, 9), (24, 40), (48, 48))
+    errs = {name: [] for name in KERNELS}
+    errs["crossing_cast"].append(compare_crossing(8, 16, 4096, 512, SEED, device))
+    errs["dda_cast"].append(compare_dda(8, 16, 4096, 512, SEED, device))
+    errs["crossing_render_pal8"].append(compare_pal8(8, 16, 4096, 512, 256, SEED, device))
+    errs["dda_render_u32"].append(compare_fused(8, 16, 4096, 512, 256, SEED, device))
+    errs["dda_render_u32"].append(
+        compare_fused(8, 16, 4096, 512, 256, SEED + 9, device, blocks=True))
+    for h, w in maps:
+        errs["crossing_cast"].append(compare_crossing(h, w, 512, 512, SEED + h, device))
+        errs["dda_cast"].append(compare_dda(h, w, 512, 512, SEED + h, device))
+        errs["crossing_render_pal8"].append(compare_pal8(h, w, 512, 512, 256, SEED + h, device))
+        for blocks in (False, True):
+            errs["dda_render_u32"].append(
+                compare_fused(h, w, 512, 512, 256, SEED + h, device, blocks=blocks))
+    for (h, w, r), seed in (((8, 16, 512), SEED + 1), ((24, 40, 333), SEED + 2)):
+        errs["crossing_cast"].append(compare_crossing(h, w, 256, r, seed, device, sliding=True))
+        errs["dda_cast"].append(compare_dda(h, w, 256, r, seed, device, sliding=True))
+    for (h, w, r, hpu), seed in (((8, 16, 513, 256), SEED + 3), ((24, 40, 333, 100), SEED + 4)):
+        errs["crossing_render_pal8"].append(
+            compare_pal8(h, w, 256, r, hpu, seed, device, sliding=True))
+        errs["dda_render_u32"].append(
+            compare_fused(h, w, 256, r, hpu, seed, device, sliding=True, blocks=True))
+    errs["dda_cast"].append(compare_dda(8, 16, 512, 512, SEED + 5, device, max_steps=3))
+    errs["dda_cast"].append(compare_dda(24, 40, 256, 333, SEED + 6, device, sliding=True,
+                                        max_steps=3))
+    for blocks in (False, True):
+        errs["dda_render_u32"].append(compare_fused(8, 16, 512, 512, 256, SEED + 7, device,
+                                                    max_steps=3, blocks=blocks))
+
+    words, pos, dirs = fuzz_inputs(8, 16, 4096, 512, SEED, device)
+    x = render_inputs(8, 16, 4096, 512, 256, SEED, device)
+    pal8_args = (x["obstacle_words"], x["shape"], x["pos"], x["dirs"], x["pdir"],
+                 x["goal"], 256, x["num"], x["denom"])
+    fused_args = (x["obstacle_words"], x["wall_words"], x["shape"], x["pos"],
+                  x["pdir"], x["dirs"], 24, 256, x["num"], x["denom"])
+    calls = {
+        "crossing_cast": (
+            lambda: rck.cast_rays_crossing_kernel(words, (8, 16), pos, dirs),
+            lambda: rck.cast_rays_crossing_kernel_ref(words, (8, 16), pos, dirs)),
+        "dda_cast": (
+            lambda: raycast_pallas.cast_rays_pallas_batched(words, (8, 16), pos, dirs, 24),
+            lambda: raycast.cast_rays_scan(words, (8, 16), pos, dirs, 24)),
+        "crossing_render_pal8": (
+            lambda: rck.cast_render_pal8_kernel(*pal8_args),
+            lambda: rck.cast_render_pal8_kernel_ref(*pal8_args)),
+        "dda_render_u32": (
+            lambda: render_fused.render_camera_fused_batched(*fused_args),
+            lambda: render_fused.render_camera_fused_batched_ref(*fused_args)),
+    }
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        k_ms = time_ms(kernel, 20)
+        p_ms = time_ms(plain, 3)
+        out[name] = (max(errs[name]), k_ms, p_ms)
+        print(f"{name}: kernel == plain on {len(errs[name])} input sets (max abs err "
+              f"{out[name][0]}); at B=4096 R=512 8x16 (hpu 256): kernel {k_ms:.4f} ms, "
+              f"plain version {p_ms:.4f} ms")
+    plain_crossing = time_ms(lambda: raycast.cast_rays_crossing(words, (8, 16), pos, dirs), 3)
+    print(f"plain crossing cast at B=4096 R=512 8x16: {plain_crossing:.4f} ms")
+    return out
 
 
 def golden_frame(game, device) -> np.ndarray:
@@ -147,8 +349,7 @@ def run_main_path(cfg, num_envs, steps, device):
     env = rt.Env(rt.SingleRoom(cfg), num_envs=num_envs, device=device)
     state, obs = env.reset(rt.rng.PRNGKey(SEED))
     run = rollout.steps_per_second_program(env, steps)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, acc = run(state, rt.rng.PRNGKey(SEED + 1))
     checksum = float(acc)
@@ -162,39 +363,43 @@ def same_state(a, b) -> bool:
     return all(torch.equal(x, b.leaves()[k]) for k, x in a.leaves().items())
 
 
-def main_path_phase(cfg, num_envs, steps, device, label):
-    """Kernel path, plain path, plain path, kernel path (alternating, on one
-    card); the kernel's launches are counted over the first run only."""
+def main_path_phase(label, cfg, num_envs, device, kernel_backend, kernel, plains,
+                    turns=True) -> int:
+    """The kernel path against each plain path on one card: kernel, the
+    plains, the plains again in reverse and the kernel again (``turns``),
+    or kernel then plains.  Every count is set to 0 just before the first
+    kernel run and read just after it: ``kernel`` must have launched once
+    per observation made and every other kernel never.  Every run must end
+    in the first run's state and checksum.  Returns ``kernel``'s launches."""
     import dataclasses
 
-    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
-
-    kcfg = cfg
-    pcfg = dataclasses.replace(cfg, raycast_backend="crossing")
-    check(kcfg.resolved_raycast_backend(device.type) == "crossing_kernel",
-          "auto does not resolve to the kernel on this device")
-    rck.cast_rays_crossing_kernel.launches = 0
-    k_state, k_sum, obs, k_s = run_main_path(kcfg, num_envs, steps, device)
-    launches = rck.cast_rays_crossing_kernel.launches
-    check(launches == steps + 1,
-          f"{label}: {launches} kernel launches for {steps + 1} casts")
+    kcfg = dataclasses.replace(cfg, raycast_backend=kernel_backend)
+    counters = wrappers()
+    for fn in counters.values():
+        fn.launches = 0
+    k_state, k_sum, obs, k_s = run_main_path(kcfg, num_envs, STEPS, device)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: (STEPS + 1 if name == kernel else 0) for name in counters}
+    check(launches == want,
+          f"{label}: kernel launches {launches} for {STEPS + 1} observations, "
+          f"expected {want}")
     check(tuple(obs.shape) == (num_envs,) + cfg.obs_shape,
           f"{label}: obs shape {tuple(obs.shape)}")
     check(math.isfinite(k_sum), f"{label}: checksum {k_sum}")
-    times = {"kernel": [k_s], "plain": []}
-    for backend_cfg, key in ((pcfg, "plain"), (pcfg, "plain"), (kcfg, "kernel")):
-        st, sm, _, s = run_main_path(backend_cfg, num_envs, steps, device)
+    order = list(plains) + (list(plains)[::-1] + [kernel_backend] if turns else [])
+    rates = [(kernel_backend, num_envs * STEPS / k_s)]
+    for backend in order:
+        st, sm, _, s = run_main_path(
+            dataclasses.replace(cfg, raycast_backend=backend), num_envs, STEPS, device)
         check(same_state(st, k_state) and sm == k_sum,
-              f"{label}: {key} path final state/checksum differ ({sm} vs {k_sum})")
-        times[key].append(s)
-    rates = {k: [num_envs * steps / s for s in v] for k, v in times.items()}
-    print(f"main path {label}: {num_envs} envs x {steps} steps, obs "
-          f"{tuple(obs.shape)} {obs.dtype}, checksum {k_sum!r} (kernel == plain), "
-          f"kernel launches {launches}")
-    print(f"main path {label} env-steps/s: kernel "
-          f"{', '.join(f'{x:.1f}' for x in rates['kernel'])}; plain crossing "
-          f"{', '.join(f'{x:.1f}' for x in rates['plain'])}")
-    return launches, obs.dtype
+              f"{label}: {backend} path final state/checksum differ ({sm} vs {k_sum})")
+        rates.append((backend, num_envs * STEPS / s))
+    print(f"main path {label}: {num_envs} envs x {STEPS} steps, obs "
+          f"{tuple(obs.shape)} {obs.dtype}, checksum {k_sum!r} (all paths equal), "
+          f"{kernel} launches {launches[kernel]}")
+    print(f"main path {label} env-steps/s in run order: "
+          + ", ".join(f"{b} {x:.1f}" for b, x in rates))
+    return launches[kernel]
 
 
 def main() -> None:
@@ -205,7 +410,7 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     import raycastworlds_tpu_torch as rt
     from raycastworlds_tpu_torch import cuda_build
-    from raycastworlds_tpu_torch.ops import raycast, raycast_crossing_kernel as rck
+    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
     device = torch.device("cuda", 0)
 
@@ -225,27 +430,13 @@ def main() -> None:
     print(f"build and load: {time.perf_counter() - t0:.2f} s -> {lib}")
     with open(lib + ".log") as f:
         for line in f:
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {line.strip()}")
 
-    # 3. kernel vs plain version on the card (exact)
-    errs = [compare_kernel(8, 16, 4096, 512, SEED, device)]
-    for h, w in ((13, 9), (24, 40), (48, 48)):
-        errs.append(compare_kernel(h, w, 512, 512, SEED + h, device))
-    errs.append(compare_kernel(8, 16, 256, 512, SEED + 1, device, sliding=True))
-    errs.append(compare_kernel(24, 40, 256, 333, SEED + 2, device, sliding=True))
-    max_err = max(errs)
-    words, pos, dirs = fuzz_inputs(8, 16, 4096, 512, SEED, device)
-    k_ms = time_ms(lambda: rck.cast_rays_crossing_kernel(words, (8, 16), pos, dirs), 50)
-    ref_ms = time_ms(
-        lambda: rck.cast_rays_crossing_kernel_ref(words, (8, 16), pos, dirs), 10)
-    plain_ms = time_ms(
-        lambda: raycast.cast_rays_crossing(words, (8, 16), pos, dirs), 10)
-    print(f"kernel == plain on 6 input sets (max abs err {max_err}); cast at "
-          f"B=4096 R=512 8x16: kernel {k_ms:.4f} ms, its plain version "
-          f"{ref_ms:.4f} ms, plain crossing cast {plain_ms:.4f} ms")
+    # 3. every kernel against its plain version on the card (exact)
+    measured = kernel_phase(device)
 
-    # 4. golden frame through the kernel
+    # 4. golden frame through the crossing kernel
     golden = np.load(os.path.join(ROOT, "tests", "data", "golden_frames.npz"))
     before = rck.cast_rays_crossing_kernel.launches
     frame = golden_frame(
@@ -256,21 +447,39 @@ def main() -> None:
           "golden frame differs from tests/data/golden_frames.npz")
     print(f"golden frame single_room {frame.shape} matches through the kernel")
 
-    # 5. the main path, then pal8
-    launches, _ = main_path_phase(rt.EnvConfig(), 4096, 64, device, "camera_u32")
-    main_path_phase(rt.EnvConfig(obs_type="camera_pal8"), 1024, 64, device,
-                    "camera_pal8")
+    # 5. the main paths
+    u32, pal8 = rt.EnvConfig(), rt.EnvConfig(obs_type="camera_pal8")
+    check(u32.resolved_raycast_backend(device.type) == "crossing_kernel",
+          "auto does not resolve to the crossing kernel on this device")
+    launches = {
+        "crossing_cast": main_path_phase(
+            "auto camera_u32", u32, 4096, device, "auto", "crossing_cast",
+            ["crossing"], turns=False),
+        "dda_render_u32": main_path_phase(
+            "fused camera_u32", u32, 4096, device, "fused", "dda_render_u32", ["scan"]),
+        "dda_cast": main_path_phase(
+            "pallas camera_u32", u32, 4096, device, "pallas", "dda_cast", ["scan"]),
+        "crossing_render_pal8": main_path_phase(
+            "crossing_kernel_fused camera_pal8", pal8, 4096, device,
+            "crossing_kernel_fused", "crossing_render_pal8",
+            ["crossing", "crossing_kernel"]),
+    }
+    main_path_phase("auto camera_pal8", pal8, 1024, device, "auto", "crossing_cast",
+                    ["crossing"], turns=False)
 
-    print(json.dumps({"kernels": [{
-        "name": "crossing_cast",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": ref_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": measured[name][0],
+            "ms": measured[name][1],
+            "plain_ms": measured[name][2],
+        }
+        for name, (source, replaces) in KERNELS.items()
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

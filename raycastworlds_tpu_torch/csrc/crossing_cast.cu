@@ -8,77 +8,22 @@
 //
 // One block per (env, chunk of kThreads rays).  The block reads the env's
 // packed obstacle words once into shared memory; each thread owns one ray
-// and loops k over both axes' grid-line crossings, testing the entered
-// tile's bit directly and keeping a running (t, k, cross tile) minimum.
+// and runs crossing_ray (crossing.cuh) over both axes' grid-line crossings.
 //
 // On this card the kernel is bound by integer and ALU work per (ray,
 // candidate) -- a divide, a floor/ceil, a shared-memory bit test and a
 // compare for each of the H + W candidates -- not by bytes: it reads 8 bytes
 // of direction per ray and writes 16 bytes of results per ray.
-//
-// Float exactness against the plain PyTorch version (bit for bit): every
-// mul, add and divide is an explicit round-to-nearest intrinsic (and the
-// library is built with -fmad=false), so the cross coordinate p + t*d
-// rounds twice as in eager torch and t = (frac + k)/|d| is the IEEE
-// quotient.  A non-finite t is masked to c = 0 before floor/ceil, and the
-// cross tile is clamped before the float->int conversion.
 
-#include <cfloat>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "crossing.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
-
-struct AxisBest {
-  float t;  // smallest occupied crossing distance, FLT_MAX if none
-  int m;    // entered tile on the crossed axis
-  int c;    // entered tile on the other axis
-};
-
-// Running lexicographic min over one axis's n crossing candidates.
-// main_is_i: the crossed lines are i-lines (bit m*W + c), else j-lines
-// (bit c*W + m).
-__device__ __forceinline__ AxisBest axis_min(
-    const uint32_t* __restrict__ words, float d_main, float d_cross,
-    float p_main, float p_cross, int n, int size_cross, int w,
-    bool main_is_i) {
-  const float fl = floorf(p_main);
-  const int main0 = __float2int_rd(p_main);
-  const int step = d_main < 0.f ? -1 : 1;
-  const float frac = __fsub_rn(p_main, fl);
-  const float frac_sel = d_main < 0.f ? frac : __fsub_rn(1.0f, frac);
-  const float ad = fabsf(d_main);
-  const float c_max = static_cast<float>(size_cross - 1);
-
-  float best = FLT_MAX;
-  int kb = 0;
-  int cb = 0;
-  for (int k = 0; k < n; ++k) {
-    const float t = __fdiv_rn(__fadd_rn(frac_sel, static_cast<float>(k)), ad);
-    const bool finite = isfinite(t);
-    const float c = finite ? __fadd_rn(p_cross, __fmul_rn(t, d_cross)) : 0.f;
-    float c_tile;
-    if (main_is_i) {
-      c_tile = d_cross >= 0.f ? floorf(c) : __fsub_rn(ceilf(c), 1.0f);
-    } else {
-      c_tile = d_cross > 0.f ? __fsub_rn(ceilf(c), 1.0f) : floorf(c);
-    }
-    const int c_idx = static_cast<int>(fminf(fmaxf(c_tile, 0.f), c_max));
-    const int m = min(max(main0 + (k + 1) * step, 0), n - 1);
-    const int bit = main_is_i ? m * w + c_idx : c_idx * w + m;
-    const bool occ = finite && ((words[bit >> 5] >> (bit & 31)) & 1u);
-    const float tm = occ ? t : FLT_MAX;
-    if (tm < best) {  // ascending k, strict <: the first minimum wins
-      best = tm;
-      kb = k;
-      cb = c_idx;
-    }
-  }
-  return {best, main0 + (kb + 1) * step, cb};
-}
 
 __global__ void __launch_bounds__(kThreads) crossing_cast_kernel(
     const uint32_t* __restrict__ words,  // [B, nw]
@@ -98,18 +43,12 @@ __global__ void __launch_bounds__(kThreads) crossing_cast_kernel(
   const int r = blockIdx.y * kThreads + threadIdx.x;
   if (r >= r_total) return;
   const size_t ray = static_cast<size_t>(b) * r_total + r;
-  const float px = pos[2 * b];
-  const float py = pos[2 * b + 1];
-  const float dx = dirs[2 * ray];
-  const float dy = dirs[2 * ray + 1];
-
-  const AxisBest ai = axis_min(s_words, dx, dy, px, py, h, w, w, true);
-  const AxisBest aj = axis_min(s_words, dy, dx, py, px, w, h, w, false);
-  const bool use_j = aj.t <= ai.t;  // ties check j first
-  dist[ray] = use_j ? aj.t : ai.t;
-  hit_tu[2 * ray] = use_j ? aj.c : ai.m;
-  hit_tu[2 * ray + 1] = use_j ? aj.m : ai.c;
-  hit_dim[ray] = use_j ? 1 : 0;
+  const RayHit hit = crossing_ray(s_words, pos[2 * b], pos[2 * b + 1],
+                                  dirs[2 * ray], dirs[2 * ray + 1], h, w);
+  dist[ray] = hit.dist;
+  hit_tu[2 * ray] = hit.hit_i;
+  hit_tu[2 * ray + 1] = hit.hit_j;
+  hit_dim[ray] = hit.dim;
 }
 
 }  // namespace
@@ -131,8 +70,9 @@ extern "C" int rcw_crossing_cast(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Largest shared-memory request the launch above makes without opting in
-// to more (48 KiB); the wrapper refuses maps whose words exceed it.
-extern "C" int rcw_crossing_cast_max_words() {
+// Largest shared-memory request (in 32-bit words) that a launch of any of
+// the library's kernels makes without opting in to more (48 KiB); the
+// wrappers refuse maps whose words exceed it.
+extern "C" int rcw_max_smem_words() {
   return 48 * 1024 / static_cast<int>(sizeof(uint32_t));
 }

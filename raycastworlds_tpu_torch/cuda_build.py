@@ -1,9 +1,11 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and the launch helpers their
+wrappers share.
 
-At first use ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, which is loaded with ``ctypes``.  The library goes
-into ``_build/`` inside the package (git-ignored), named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
+At first use ``nvcc`` compiles every ``csrc/*.cu`` (one process per source,
+all started together) and links the objects into one shared library with a
+plain C interface, which is loaded with ``ctypes``.  The library goes into
+``_build/`` inside the package (git-ignored), named by a hash of the sources,
+headers and flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing here runs at import time: the CPU-only test machines have
 no ``nvcc``.
 """
@@ -19,6 +21,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -30,7 +34,7 @@ NVCC_FLAGS = (
     # plain PyTorch versions bit for bit (no --use_fast_math either).
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -65,6 +69,21 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"librcw_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the output of the first that
+    fails, else return their outputs."""
+    cmds = list(cmds)
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
+    return outs
+
+
 def build() -> str:
     """Compile the kernels unless a library for these sources exists;
     returns its path.  nvcc's report (ptxas registers, shared memory and
@@ -75,23 +94,18 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *srcs],
-            capture_output=True, text=True,
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        logs = _run_all(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", o, s]
+            for s, o in zip(srcs, objs)
         )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+        lib = os.path.join(tmp, "lib.so")
+        logs += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]])
         with open(out + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            f.write("".join(logs))
+        os.replace(lib, out)  # atomic: a concurrent build never sees half a file
     return out
 
 
@@ -100,9 +114,52 @@ def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C entry
     points' argument types (every pointer and the stream as c_void_p)."""
     lib = ctypes.CDLL(build())
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rcw_crossing_cast.argtypes = [vp] * 6 + [ci] * 5 + [vp]
-    lib.rcw_crossing_cast.restype = ci
-    lib.rcw_crossing_cast_max_words.argtypes = []
-    lib.rcw_crossing_cast_max_words.restype = ci
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    entries = {
+        "rcw_max_smem_words": [],
+        "rcw_crossing_cast": [vp] * 6 + [ci] * 5 + [vp],
+        "rcw_dda_cast": [vp] * 6 + [ci] * 6 + [vp],
+        "rcw_dda_render_u32": [vp] * 7 + [ci] * 7 + [cf, cf, vp],
+        "rcw_crossing_render_pal8": [vp] * 6 + [ci] * 6 + [cf, cf, vp],
+    }
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ci
     return lib
+
+
+_THREADS = 128          # rays per block in every kernel
+_MAX_RAY_CHUNKS = 65535  # grid.y limit
+
+
+def kernel_library(device, n_words: int, b: int, r: int, what: str,
+                   **tensors) -> ctypes.CDLL:
+    """The loaded library, once the launch of ``what`` on ``device`` is one
+    its kernels take: a CUDA device, contiguous ``tensors``, ``n_words``
+    packed words per env within the shared memory of a block, and a grid of
+    ``b`` envs x ``r`` rays.  Raises otherwise."""
+    if device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {device}")
+    for name, x in tensors.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = load()
+    cap = lib.rcw_max_smem_words()
+    if n_words > cap:
+        raise ValueError(
+            f"{what} needs {n_words} words of shared memory per env, more "
+            f"than the kernel's block holds ({cap})"
+        )
+    if b < 1 or r < 1 or -(-r // _THREADS) > _MAX_RAY_CHUNKS:
+        raise ValueError(f"unsupported batch shape B={b}, R={r}")
+    return lib
+
+
+def launch(entry, device, *args, what: str) -> None:
+    """Call the C entry ``entry(*args, stream)`` on ``device``'s current
+    stream and raise if it reports a CUDA error (a refused launch)."""
+    with torch.cuda.device(device):
+        err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

@@ -13,6 +13,8 @@ import torch
 
 from ..config import MOVE_FORWARD, TURN_LEFT, TURN_RIGHT, EnvConfig
 from ..ops import collision, lut, raycast, render
+from ..ops import raycast_crossing_kernel as rck
+from ..ops import render_fused
 from ..state import EnvState
 
 
@@ -22,7 +24,7 @@ def _check_ported(cfg: EnvConfig) -> None:
             "float64 and continuous headings are not ported yet "
             "(ROADMAP Queue 1 item 16)"
         )
-    if cfg.raycast_backend not in ("auto", "crossing", "crossing_kernel"):
+    if cfg.raycast_backend in raycast._BACKEND_ITEM:
         raise NotImplementedError(
             f"raycast_backend {cfg.raycast_backend!r} is not ported yet "
             f"({raycast._BACKEND_ITEM[cfg.raycast_backend]})"
@@ -60,8 +62,9 @@ class Game:
     def _player_dir(self, state: EnvState) -> torch.Tensor:
         return lut.take_rows(self._table("directions_wu", state.device), state.dir_au)
 
-    def _ray_dirs(self, state: EnvState) -> torch.Tensor:
-        return lut.take_rows(self._table("ray_fan_lut", state.device), state.dir_au)
+    def _ray_dirs(self, state: EnvState, flipped: bool = False) -> torch.Tensor:
+        name = "ray_fan_lut_flipped" if flipped else "ray_fan_lut"
+        return lut.take_rows(self._table(name, state.device), state.dir_au)
 
     # -- shared dynamics ------------------------------------------------
 
@@ -130,6 +133,11 @@ class Game:
         ).to(torch.int32)
         return wall_words, wall_words | goal_vec
 
+    def _block_words_batch(self, state: EnvState):
+        """Packed words i32[B, nw] of the block tiles, or None: no ported
+        family has blocks yet (DynamicRoom is ROADMAP Queue 1 item 13)."""
+        return None
+
     def cast_batch(self, state: EnvState) -> raycast.RayHits:
         """Ray-cast every env's pose through the backend the config resolves
         for the state's device."""
@@ -138,8 +146,57 @@ class Game:
             self.cfg, obstacle_words, state.pos_wu, self._ray_dirs(state)
         )
 
+    def _use_fused(self) -> bool:
+        """The DDA + u32 render kernel: flat-shaded float32 camera_u32, rgb
+        and gray views (rgb and gray are conversions of its image)."""
+        cfg = self.cfg
+        return (
+            cfg.raycast_backend == "fused"
+            and cfg.obs_type in ("camera_u32", "camera_rgb", "camera_gray")
+            and cfg.wall_texture == "none"
+            and cfg.dtype == "float32"
+        )
+
+    def _use_kernel_pal8(self, state: EnvState) -> bool:
+        """The crossing cast + pal8 render kernel: flat-shaded float32 pal8
+        views of worlds with one goal tile and no blocks, whose slab colour
+        it decides by equality of the hit tile with the goal tile."""
+        cfg = self.cfg
+        return (
+            cfg.raycast_backend == "crossing_kernel_fused"
+            and cfg.obs_type == "camera_pal8"
+            and cfg.wall_texture == "none"
+            and cfg.dtype == "float32"
+            and not cfg.continuous_heading
+            and getattr(state, "goal_words", None) is None
+            and self._block_words_batch(state) is None
+        )
+
     def observe_batch(self, state: EnvState) -> torch.Tensor:
+        cfg = self.cfg
+        if self._use_kernel_pal8(state):
+            _, obstacle_words = self._packed_maps_batch(state)
+            return rck.cast_render_pal8_kernel(
+                obstacle_words, (cfg.H, cfg.W), state.pos_wu,
+                self._ray_dirs(state, flipped=True), self._player_dir(state),
+                state.goal_tu, cfg.height_camera_view_pu,
+                *render.render_constants(cfg),
+            )
+        if self._use_fused():
+            wall_words, obstacle_words = self._packed_maps_batch(state)
+            img = render_fused.render_camera_fused_batched(
+                obstacle_words, wall_words, (cfg.H, cfg.W), state.pos_wu,
+                self._player_dir(state), self._ray_dirs(state, flipped=True),
+                cfg.dda_steps, cfg.height_camera_view_pu,
+                *render.render_constants(cfg),
+                block_words=self._block_words_batch(state),
+            )
+            if cfg.obs_type == "camera_rgb":
+                return render.u32_to_rgb(img)
+            if cfg.obs_type == "camera_gray":
+                return render.u32_to_gray(img)
+            return img.view(torch.uint32)
         hits = self.cast_batch(state)
         return render.render_observation(
-            self.cfg, state.wall_words, state.goal_tu, self._player_dir(state), hits
+            cfg, state.wall_words, state.goal_tu, self._player_dir(state), hits
         )

@@ -165,6 +165,108 @@ def cast_rays_crossing(
     return torch.stack([hit_i, hit_j], dim=-1), hit_dim, dist
 
 
+def cast_rays_scan(
+    obstacle_words: torch.Tensor,   # i32[B, NW]
+    shape: Tuple[int, int],
+    pos_wu: torch.Tensor,           # f32[B, 2]
+    ray_dirs: torch.Tensor,         # f32[B, R, 2]
+    max_steps: int,
+    early_exit: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain DDA, all rays of all envs in lockstep for ``max_steps`` steps.
+    Returns (hit_tu i32[B, R, 2], hit_dim i32[B, R], dist f32[B, R]).
+
+    Lodev/Wolfenstein DDA, as the JAX package's ``cast_rays_scan``:
+    ``delta = |1/d|`` is the ray length per unit axis step (+inf on an
+    exact-zero component), ``side`` the ray length to the next grid line of
+    each axis; each step advances the axis with the smaller side (a tie
+    steps j) and the hit distance is that side before the step.  Hit rays
+    freeze; rays that never hit march every step, and ``hit_tu`` is the
+    final map position either way (dist the largest float32 on a miss).
+    ``early_exit`` stops once every ray has hit (a host sync per step);
+    frozen rays are no-ops, so the results are the same.
+
+    ``delta`` divides a tensor of ones by ``d``: on CUDA torch computes
+    ``1 / tensor`` and ``tensor / python float`` through a reciprocal.
+    """
+    h, w = shape
+    dx = ray_dirs[..., 0]
+    dy = ray_dirs[..., 1]
+    px = pos_wu[:, 0:1]
+    py = pos_wu[:, 1:2]
+    fx = torch.floor(px)
+    fy = torch.floor(py)
+    map_i = fx.to(torch.int32).expand_as(dx)
+    map_j = fy.to(torch.int32).expand_as(dy)
+    ones = torch.ones_like(dx)
+    delta_i = torch.abs(ones / dx)
+    delta_j = torch.abs(ones / dy)
+    step_i = torch.where(dx < 0, -1, 1).to(torch.int32)
+    step_j = torch.where(dy < 0, -1, 1).to(torch.int32)
+    frac_i = px - fx
+    frac_j = py - fy
+    side_i = torch.where(dx < 0, frac_i, 1.0 - frac_i) * delta_i
+    side_j = torch.where(dy < 0, frac_j, 1.0 - frac_j) * delta_j
+
+    hit = torch.zeros_like(dx, dtype=torch.bool)
+    hit_dim = torch.zeros_like(dx, dtype=torch.int32)
+    dist = torch.full_like(dx, _BIG)
+    for _ in range(max_steps):
+        if early_exit and bool(hit.all()):
+            break
+        take_i = side_i < side_j
+        adv = ~hit
+        cross = torch.minimum(side_i, side_j)
+        go_i = adv & take_i
+        go_j = adv & ~take_i
+        map_i = map_i + torch.where(go_i, step_i, 0)
+        map_j = map_j + torch.where(go_j, step_j, 0)
+        side_i = side_i + torch.where(go_i, delta_i, 0.0)
+        side_j = side_j + torch.where(go_j, delta_j, 0.0)
+        idx = torch.clamp(map_i, 0, h - 1) * w + torch.clamp(map_j, 0, w - 1)
+        occ = bitmap.lookup_bit(obstacle_words, idx)
+        newly = adv & occ
+        hit = hit | occ
+        hit_dim = torch.where(newly, torch.where(take_i, 0, 1), hit_dim).to(torch.int32)
+        dist = torch.where(newly, cross, dist)
+    return torch.stack([map_i, map_j], dim=-1), hit_dim, dist
+
+
+def check_cast_inputs(obstacle_words, shape, pos_wu, ray_dirs) -> None:
+    """Raise unless the batch cast contract holds: words i32[B, NW] packing
+    an H x W map, pos f32[B, 2] and dirs f32[B, R, 2], on one device."""
+    h, w = shape
+    if obstacle_words.dim() != 2 or pos_wu.dim() != 2 or ray_dirs.dim() != 3:
+        raise ValueError("expected words [B, NW], pos [B, 2], dirs [B, R, 2]")
+    b, nw = obstacle_words.shape
+    if nw != bitmap.n_words(h * w):
+        raise ValueError(f"{nw} words do not pack a {h}x{w} map")
+    if tuple(pos_wu.shape) != (b, 2) or ray_dirs.shape[0] != b or ray_dirs.shape[2] != 2:
+        raise ValueError(
+            f"shape mismatch: words {tuple(obstacle_words.shape)}, "
+            f"pos {tuple(pos_wu.shape)}, dirs {tuple(ray_dirs.shape)}"
+        )
+    if obstacle_words.dtype != torch.int32:
+        raise TypeError(f"obstacle_words must be int32, got {obstacle_words.dtype}")
+    if pos_wu.dtype != torch.float32 or ray_dirs.dtype != torch.float32:
+        raise TypeError("pos_wu and ray_dirs must be float32")
+    devs = {obstacle_words.device, pos_wu.device, ray_dirs.device}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {devs}")
+
+
+def check_env_tensor(name, x, pos_wu, dtype, tail) -> None:
+    """Raise unless ``x`` is a ``dtype`` tensor of shape [B, *tail] on the
+    device of ``pos_wu`` [B, 2]."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != (pos_wu.shape[0],) + tuple(tail):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{(pos_wu.shape[0],) + tuple(tail)}")
+    if x.device != pos_wu.device:
+        raise ValueError(f"{name} is on {x.device}, the cast on {pos_wu.device}")
+
+
 def cast_rays(
     cfg: EnvConfig,
     obstacle_words: torch.Tensor,
@@ -172,18 +274,39 @@ def cast_rays(
     ray_dirs: torch.Tensor,
 ) -> RayHits:
     """Batch cast through the backend ``cfg`` resolves for the device the
-    tensors live on: the CUDA kernel for ``crossing_kernel``, the plain
-    cast for ``crossing``."""
+    tensors live on:
+
+    * ``crossing_kernel`` and ``crossing_kernel_fused``: the crossing cast
+      kernel (the fused backend renders pal8 in its own kernel and casts
+      through this one for every other observation);
+    * ``crossing``: the plain crossing cast;
+    * ``pallas``: the DDA kernel;
+    * ``scan``, ``scan_flat`` and ``fused``: the plain DDA (the fused
+      backend renders camera_u32/rgb/gray in its own kernel and casts
+      through the scan for every other observation).
+    """
     backend = cfg.resolved_raycast_backend(pos_wu.device.type)
-    if backend == "crossing_kernel":
+    shape = (cfg.H, cfg.W)
+    if backend in ("crossing_kernel", "crossing_kernel_fused"):
         from . import raycast_crossing_kernel as rck
 
         hit_tu, hit_dim, dist = rck.cast_rays_crossing_kernel(
-            obstacle_words, (cfg.H, cfg.W), pos_wu, ray_dirs
+            obstacle_words, shape, pos_wu, ray_dirs
         )
     elif backend == "crossing":
         hit_tu, hit_dim, dist = cast_rays_crossing(
-            obstacle_words, (cfg.H, cfg.W), pos_wu, ray_dirs
+            obstacle_words, shape, pos_wu, ray_dirs
+        )
+    elif backend == "pallas":
+        from . import raycast_pallas
+
+        hit_tu, hit_dim, dist = raycast_pallas.cast_rays_pallas_batched(
+            obstacle_words, shape, pos_wu, ray_dirs, cfg.dda_steps
+        )
+    elif backend in ("scan", "scan_flat", "fused"):
+        hit_tu, hit_dim, dist = cast_rays_scan(
+            obstacle_words, shape, pos_wu, ray_dirs, cfg.dda_steps,
+            early_exit=cfg.dda_early_exit,
         )
     else:
         raise NotImplementedError(
@@ -194,10 +317,5 @@ def cast_rays(
 
 # Where each backend that is not ported yet stands in ROADMAP.md.
 _BACKEND_ITEM = {
-    "scan": "ROADMAP Queue 1 item 10",
-    "scan_flat": "ROADMAP Queue 1 item 10",
     "analytic": "ROADMAP Queue 1 item 11",
-    "crossing_kernel_fused": "ROADMAP Queue 2 item 1",
-    "pallas": "ROADMAP Queue 2 item 2",
-    "fused": "ROADMAP Queue 2 item 3",
 }

@@ -1,11 +1,18 @@
-"""The crossing cast as a hand-written CUDA kernel (``csrc/crossing_cast.cu``).
+"""The crossing cast as hand-written CUDA kernels.
 
-The port of the JAX package's Pallas kernel of the same module name.  For a
-CUDA tensor the wrapper launches the kernel; for a CPU tensor it runs
-:func:`cast_rays_crossing_kernel_ref`, the kernel's plain PyTorch version,
-which the tests hold against the JAX package and ``chip_smoke.py`` holds
-the kernel against on the card.  There is no fallback: any other device,
-a dtype or shape the kernel does not take, or a failed launch raises.
+The port of the JAX package's Pallas kernels of the same module name:
+
+* :func:`cast_rays_crossing_kernel` (``csrc/crossing_cast.cu``), the batch
+  crossing cast;
+* :func:`cast_render_pal8_kernel` (``csrc/crossing_render_pal8.cu``), the
+  same cast on a mirror-ordered fan fused with the pal8 camera render
+  (backend ``crossing_kernel_fused``).
+
+For a CUDA tensor each wrapper launches its kernel; for a CPU tensor it runs
+the kernel's plain PyTorch version (``*_ref``), which the tests hold against
+the JAX package and ``chip_smoke.py`` holds the kernel against on the card.
+There is no fallback: any other device, a dtype or shape the kernel does
+not take, or a failed launch raises.
 """
 
 from __future__ import annotations
@@ -15,10 +22,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from . import bitmap
+from .. import colors, cuda_build
+from . import bitmap, raycast, render
 
 _BIG = float(np.finfo(np.float32).max)
-_MAX_RAY_CHUNKS = 65535  # grid.y limit; rays go in chunks of 128
 
 
 def _axis_loop_ref(
@@ -79,27 +86,6 @@ def cast_rays_crossing_kernel_ref(
     return torch.stack([hit_i, hit_j], dim=-1), use_j.to(torch.int32), dist
 
 
-def _check_inputs(obstacle_words, shape, pos_wu, ray_dirs):
-    h, w = shape
-    if obstacle_words.dim() != 2 or pos_wu.dim() != 2 or ray_dirs.dim() != 3:
-        raise ValueError("expected words [B, NW], pos [B, 2], dirs [B, R, 2]")
-    b, nw = obstacle_words.shape
-    if nw != bitmap.n_words(h * w):
-        raise ValueError(f"{nw} words do not pack a {h}x{w} map")
-    if tuple(pos_wu.shape) != (b, 2) or ray_dirs.shape[0] != b or ray_dirs.shape[2] != 2:
-        raise ValueError(
-            f"shape mismatch: words {tuple(obstacle_words.shape)}, "
-            f"pos {tuple(pos_wu.shape)}, dirs {tuple(ray_dirs.shape)}"
-        )
-    if obstacle_words.dtype != torch.int32:
-        raise TypeError(f"obstacle_words must be int32, got {obstacle_words.dtype}")
-    if pos_wu.dtype != torch.float32 or ray_dirs.dtype != torch.float32:
-        raise TypeError("pos_wu and ray_dirs must be float32")
-    devs = {obstacle_words.device, pos_wu.device, ray_dirs.device}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on different devices: {devs}")
-
-
 def cast_rays_crossing_kernel(
     obstacle_words: torch.Tensor,   # i32[B, NW] packed obstacle words
     shape: Tuple[int, int],
@@ -112,44 +98,114 @@ def cast_rays_crossing_kernel(
 
     ``cast_rays_crossing_kernel.launches`` counts kernel launches.
     """
-    _check_inputs(obstacle_words, shape, pos_wu, ray_dirs)
+    raycast.check_cast_inputs(obstacle_words, shape, pos_wu, ray_dirs)
     dev = pos_wu.device
     if dev.type == "cpu":
         return cast_rays_crossing_kernel_ref(obstacle_words, shape, pos_wu, ray_dirs)
-    if dev.type != "cuda":
-        raise ValueError(f"no crossing kernel for device {dev}")
-    for name, x in (("obstacle_words", obstacle_words), ("pos_wu", pos_wu),
-                    ("ray_dirs", ray_dirs)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-    from .. import cuda_build
-
-    lib = cuda_build.load()
+    lib = cuda_build.kernel_library(
+        dev, obstacle_words.shape[1], ray_dirs.shape[0], ray_dirs.shape[1],
+        "crossing cast", obstacle_words=obstacle_words, pos_wu=pos_wu,
+        ray_dirs=ray_dirs,
+    )
     h, w = shape
     b, r = ray_dirs.shape[0], ray_dirs.shape[1]
-    nw = obstacle_words.shape[1]
-    if nw > lib.rcw_crossing_cast_max_words():
-        raise ValueError(
-            f"a {h}x{w} map needs {nw} words, more than the kernel's shared "
-            f"memory holds ({lib.rcw_crossing_cast_max_words()})"
-        )
-    if b < 1 or r < 1 or -(-r // 128) > _MAX_RAY_CHUNKS:
-        raise ValueError(f"unsupported batch shape B={b}, R={r}")
     hit_tu = torch.empty((b, r, 2), dtype=torch.int32, device=dev)
     hit_dim = torch.empty((b, r), dtype=torch.int32, device=dev)
     dist = torch.empty((b, r), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rcw_crossing_cast(
-            obstacle_words.data_ptr(), pos_wu.data_ptr(), ray_dirs.data_ptr(),
-            hit_tu.data_ptr(), hit_dim.data_ptr(), dist.data_ptr(),
-            b, r, h, w, nw, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"crossing cast kernel launch failed: CUDA error {err}")
+    cuda_build.launch(
+        lib.rcw_crossing_cast, dev,
+        obstacle_words.data_ptr(), pos_wu.data_ptr(), ray_dirs.data_ptr(),
+        hit_tu.data_ptr(), hit_dim.data_ptr(), dist.data_ptr(),
+        b, r, h, w, obstacle_words.shape[1], what="crossing cast",
+    )
     cast_rays_crossing_kernel.launches += 1
     return hit_tu, hit_dim, dist
 
 
 cast_rays_crossing_kernel.launches = 0
+
+
+def cast_render_pal8_kernel_ref(
+    obstacle_words: torch.Tensor,
+    shape: Tuple[int, int],
+    pos_wu: torch.Tensor,
+    ray_dirs_flipped: torch.Tensor,
+    player_dir: torch.Tensor,
+    goal_tu: torch.Tensor,
+    hpu: int,
+    num: float,
+    denom: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel: the crossing kernel's cast
+    on the mirror-ordered fan, then the column geometry of the plain render
+    and a slab that is goal-vs-wall by equality of the hit tile with the
+    goal tile.  Columns come out in fan order (already mirrored)."""
+    hit_tu, hit_dim, dist = cast_rays_crossing_kernel_ref(
+        obstacle_words, shape, pos_wu, ray_dirs_flipped
+    )
+    hits = raycast.RayHits(ray_dirs=ray_dirs_flipped, hit_tu=hit_tu,
+                           hit_dim=hit_dim, dist_wu=dist)
+    pad, _ = render.column_pads(player_dir, hits, hpu, num, denom)
+    dim_i = hit_dim == 0
+    is_goal = (hit_tu[..., 0] == goal_tu[:, 0:1]) & (hit_tu[..., 1] == goal_tu[:, 1:2])
+    u8 = lambda v: torch.tensor(v, dtype=torch.uint8, device=pad.device)  # noqa: E731
+    slab = torch.where(
+        is_goal,
+        torch.where(dim_i, u8(colors.PAL_GOAL_DIM_I), u8(colors.PAL_GOAL_DIM_J)),
+        torch.where(dim_i, u8(colors.PAL_WALL_DIM_I), u8(colors.PAL_WALL_DIM_J)),
+    )
+    return render.composite(pad, slab[:, None, :], hpu,
+                            u8(colors.PAL_CEILING), u8(colors.PAL_FLOOR))
+
+
+def cast_render_pal8_kernel(
+    obstacle_words: torch.Tensor,    # i32[B, NW] packed obstacle words
+    shape: Tuple[int, int],
+    pos_wu: torch.Tensor,            # f32[B, 2]
+    ray_dirs_flipped: torch.Tensor,  # f32[B, R, 2] mirror-ordered fan
+    player_dir: torch.Tensor,        # f32[B, 2]
+    goal_tu: torch.Tensor,           # i32[B, 2] the single goal tile
+    hpu: int,
+    num: float,
+    denom: float,
+) -> torch.Tensor:
+    """uint8[B, hpu, R] pal8 camera views, cast and render in one kernel.
+    ``num`` and ``denom`` are the float32 render constants
+    (:func:`render.render_constants`).  Valid where the obstacle map is the
+    walls plus the goal tile, which lies on an empty tile.
+
+    ``cast_render_pal8_kernel.launches`` counts kernel launches.
+    """
+    raycast.check_cast_inputs(obstacle_words, shape, pos_wu, ray_dirs_flipped)
+    raycast.check_env_tensor("player_dir", player_dir, pos_wu, torch.float32, (2,))
+    raycast.check_env_tensor("goal_tu", goal_tu, pos_wu, torch.int32, (2,))
+    if hpu < 1:
+        raise ValueError(f"hpu must be >= 1, got {hpu}")
+    dev = pos_wu.device
+    if dev.type == "cpu":
+        return cast_render_pal8_kernel_ref(
+            obstacle_words, shape, pos_wu, ray_dirs_flipped, player_dir,
+            goal_tu, hpu, num, denom,
+        )
+    b, r = ray_dirs_flipped.shape[0], ray_dirs_flipped.shape[1]
+    nw = obstacle_words.shape[1]
+    lib = cuda_build.kernel_library(
+        dev, nw, b, r, "crossing cast + pal8 render",
+        obstacle_words=obstacle_words, pos_wu=pos_wu,
+        ray_dirs_flipped=ray_dirs_flipped, player_dir=player_dir,
+        goal_tu=goal_tu,
+    )
+    h, w = shape
+    img = torch.empty((b, hpu, r), dtype=torch.uint8, device=dev)
+    cuda_build.launch(
+        lib.rcw_crossing_render_pal8, dev,
+        obstacle_words.data_ptr(), pos_wu.data_ptr(),
+        ray_dirs_flipped.data_ptr(), player_dir.data_ptr(),
+        goal_tu.data_ptr(), img.data_ptr(), b, r, h, w, nw, hpu, num, denom,
+        what="crossing cast + pal8 render",
+    )
+    cast_render_pal8_kernel.launches += 1
+    return img
+
+
+cast_render_pal8_kernel.launches = 0

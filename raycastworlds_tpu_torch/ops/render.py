@@ -47,37 +47,59 @@ def projected_depth(player_dir_wu: torch.Tensor, hits: RayHits) -> torch.Tensor:
     return hits.dist_wu * dot
 
 
-def _hit_is_wall(wall_words, shape, hits: RayHits) -> torch.Tensor:
+def _hit_tile_bit(shape, hits: RayHits) -> torch.Tensor:
+    """Bit index i32[B, R] of each hit tile, clamped into the map."""
     h, w = shape
     hi = torch.clamp(hits.hit_tu[..., 0], 0, h - 1)
     hj = torch.clamp(hits.hit_tu[..., 1], 0, w - 1)
-    return bitmap.lookup_bit(wall_words, hi * w + hj)
+    return hi * w + hj
 
 
-def column_colors_u32(wall_words, shape, hits: RayHits) -> torch.Tensor:
+def _hit_is_wall(wall_words, shape, hits: RayHits) -> torch.Tensor:
+    return bitmap.lookup_bit(wall_words, _hit_tile_bit(shape, hits))
+
+
+def column_colors_u32(wall_words, shape, hits: RayHits,
+                      block_words=None) -> torch.Tensor:
     """Per-ray slab colour, int32[B, R]: wall shades where the hit tile has
-    the wall bit, goal shades otherwise; shade by hit-face axis."""
-    is_wall = _hit_is_wall(wall_words, shape, hits)
+    the wall bit, goal shades otherwise; shade by hit-face axis.
+    ``block_words`` (packed block tiles, or None) adds a third pair of
+    shades for block tiles that are not walls."""
+    bit = _hit_tile_bit(shape, hits)
+    is_wall = bitmap.lookup_bit(wall_words, bit)
     dim_i = hits.hit_dim == 0
     c = lambda v: _const(v, hits.hit_dim).to(torch.int32)  # noqa: E731
     wall_c = torch.where(dim_i, c(colors.WALL_DIM_I), c(colors.WALL_DIM_J))
     goal_c = torch.where(dim_i, c(colors.GOAL_DIM_I), c(colors.GOAL_DIM_J))
-    return torch.where(is_wall, wall_c, goal_c)
+    out = torch.where(is_wall, wall_c, goal_c)
+    if block_words is not None:
+        is_block = bitmap.lookup_bit(block_words, bit)
+        block_c = torch.where(dim_i, c(colors.BLOCK_DIM_I), c(colors.BLOCK_DIM_J))
+        out = torch.where(is_block & ~is_wall, block_c, out)
+    return out
 
 
-def _column_pads(cfg: EnvConfig, player_dir_wu, hits: RayHits):
+def render_constants(cfg: EnvConfig):
+    """(num, denom) of the column height, float32 values as Python floats:
+    ``cam_h * R`` and ``2 * sfov``."""
+    return (
+        float(np.float32(cfg.camera_height_tile_wu * cfg.num_rays)),
+        float(np.float32(2.0 * cfg.semi_field_of_view_wu)),
+    )
+
+
+def column_pads(player_dir_wu, hits: RayHits, hpu: int, num: float, denom: float):
     """(pad i32[B, R], height_line f32[B, R]), the column geometry shared by
-    the u32 and pal8 renderers:
-      height_line = cam_h * R / (2 * sfov * projected)
+    the u32 and pal8 renderers and their fused kernels:
+      height_line = num / (denom * projected)
       non-finite height -> full column
       height_pu >= H_pu - 1 -> full wall column (pad 0)
       else pad = (H_pu - height_pu) // 2
     """
-    hpu = cfg.height_camera_view_pu
     proj = projected_depth(player_dir_wu, hits)
-    num = _const(np.float32(cfg.camera_height_tile_wu * cfg.num_rays), proj)
-    denom_c = _const(np.float32(2.0 * cfg.semi_field_of_view_wu), proj)
-    height_line = num / (denom_c * proj)
+    num_c = _const(np.float32(num), proj)
+    denom_c = _const(np.float32(denom), proj)
+    height_line = num_c / (denom_c * proj)
     finite = torch.isfinite(height_line)
     # Clamp before the int cast; clamping at hpu keeps `>= hpu - 1` intact.
     h_pu = torch.where(
@@ -89,10 +111,10 @@ def _column_pads(cfg: EnvConfig, player_dir_wu, hits: RayHits):
     return pad, height_line
 
 
-def _composite(pad: torch.Tensor, wall_band: torch.Tensor, hpu: int,
-               ceiling: torch.Tensor, floor: torch.Tensor) -> torch.Tensor:
+def composite(pad: torch.Tensor, wall_band: torch.Tensor, hpu: int,
+              ceiling: torch.Tensor, floor: torch.Tensor) -> torch.Tensor:
     """[B, H_pu, R] image: ceiling above the pad, floor below, wall band
-    ([B, 1, R]) between; pads are already mirrored."""
+    ([B, 1, R]) between; pads are already in column order."""
     row = torch.arange(hpu, dtype=torch.int32, device=pad.device)[None, :, None]
     p = pad[:, None, :]
     return torch.where(
@@ -100,23 +122,30 @@ def _composite(pad: torch.Tensor, wall_band: torch.Tensor, hpu: int,
     )
 
 
-def render_camera_u32(
-    cfg: EnvConfig, wall_words, player_dir_wu, hits: RayHits
-) -> torch.Tensor:
-    """int32[B, H_pu, R] 0x00RRGGBB camera views; columns are written
-    mirrored (column ``R - 1 - i`` shows ray ``i``)."""
-    if cfg.wall_texture != "none":
-        raise _not_ported("textures")
-    pad, _ = _column_pads(cfg, player_dir_wu, hits)
-    slab = column_colors_u32(wall_words, (cfg.H, cfg.W), hits)
+def camera_u32(wall_words, shape, player_dir_wu, hits: RayHits, hpu: int,
+               num: float, denom: float, block_words=None) -> torch.Tensor:
+    """int32[B, hpu, R] flat-shaded 0x00RRGGBB camera views; columns are
+    written mirrored (column ``R - 1 - i`` shows ray ``i``)."""
+    pad, _ = column_pads(player_dir_wu, hits, hpu, num, denom)
+    slab = column_colors_u32(wall_words, shape, hits, block_words)
     # Mirror the per-ray vectors before the [H_pu, R] broadcast.
     pad = torch.flip(pad, dims=(1,))
     slab = torch.flip(slab, dims=(1,))
     i32 = lambda v: _const(v, pad).to(torch.int32)  # noqa: E731
-    return _composite(
-        pad, slab[:, None, :], cfg.height_camera_view_pu,
-        i32(colors.CEILING), i32(colors.FLOOR),
-    )
+    return composite(pad, slab[:, None, :], hpu, i32(colors.CEILING),
+                     i32(colors.FLOOR))
+
+
+def render_camera_u32(
+    cfg: EnvConfig, wall_words, player_dir_wu, hits: RayHits, block_words=None
+) -> torch.Tensor:
+    """int32[B, H_pu, R] 0x00RRGGBB camera views of ``cfg``
+    (:func:`camera_u32`)."""
+    if cfg.wall_texture != "none":
+        raise _not_ported("textures")
+    return camera_u32(wall_words, (cfg.H, cfg.W), player_dir_wu, hits,
+                      cfg.height_camera_view_pu, *render_constants(cfg),
+                      block_words)
 
 
 def u32_to_rgb(img: torch.Tensor) -> torch.Tensor:
@@ -177,12 +206,13 @@ def render_camera_pal8(
     ``pal8_to_u32(render_camera_pal8(...)) == render_camera_u32(...)``."""
     if cfg.wall_texture != "none":
         raise _not_ported("textures")
-    pad, _ = _column_pads(cfg, player_dir_wu, hits)
+    pad, _ = column_pads(player_dir_wu, hits, cfg.height_camera_view_pu,
+                         *render_constants(cfg))
     slab = column_colors_pal8(wall_words, (cfg.H, cfg.W), hits)
     pad = torch.flip(pad, dims=(1,))
     slab = torch.flip(slab, dims=(1,))
     u8 = lambda v: _const(v, pad).to(torch.uint8)  # noqa: E731
-    return _composite(
+    return composite(
         pad, slab[:, None, :], cfg.height_camera_view_pu,
         u8(colors.PAL_CEILING), u8(colors.PAL_FLOOR),
     )

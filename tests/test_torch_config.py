@@ -87,9 +87,18 @@ def test_auto_backend_is_device_aware():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(raycast_backend="scan"), dict(raycast_backend="crossing_kernel_fused"),
-     dict(dtype="float64"), dict(continuous_heading=True)],
+    [dict(raycast_backend="analytic"), dict(dtype="float64"),
+     dict(continuous_heading=True)],
 )
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rt.SingleRoom(rt.EnvConfig(**kw))
+
+
+@pytest.mark.parametrize(
+    "backend", ["scan", "scan_flat", "pallas", "fused", "crossing_kernel_fused"]
+)
+def test_dda_and_fused_backends_construct(backend):
+    game = rt.SingleRoom(rt.EnvConfig(raycast_backend=backend))
+    assert game.cfg.resolved_raycast_backend("cuda") == backend
+    assert game.cfg.resolved_raycast_backend("cpu") == backend

@@ -9,10 +9,14 @@ import sys
 import raycastworlds_tpu_torch as rt
 import raycastworlds_tpu_torch.cuda_build
 import raycastworlds_tpu_torch.ops.raycast_crossing_kernel
+import raycastworlds_tpu_torch.ops.raycast_pallas
+import raycastworlds_tpu_torch.ops.render_fused
 import raycastworlds_tpu_torch.parallel.rollout
-env = rt.Env(rt.SingleRoom(rt.EnvConfig(num_rays=8, height_camera_view_pu=8)), num_envs=2)
-state, obs = env.reset(rt.rng.PRNGKey(0))
-env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
+for backend in ("auto", "fused"):
+    cfg = rt.EnvConfig(num_rays=8, height_camera_view_pu=8, raycast_backend=backend)
+    env = rt.Env(rt.SingleRoom(cfg), num_envs=2)
+    state, obs = env.reset(rt.rng.PRNGKey(0))
+    env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "raycastworlds_tpu"))
 print(",".join(bad))
