@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``raycastworlds_tpu_torch/csrc`` and drives the
-port's main paths, ``Env(SingleRoom(EnvConfig(raycast_backend=B)))`` with
-dense auto-reset, on the card.  Phases, each printing a line:
+port's main paths, ``Env(Family(Config(raycast_backend=B)))`` with dense or
+budgeted auto-reset, on the card.  Phases, each printing a line:
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. the kernel build and its seconds;
@@ -17,15 +17,29 @@ dense auto-reset, on the card.  Phases, each printing a line:
    plus each kernel's time and its plain version's;
 4. the golden frame of tests/data/golden_frames.npz ("single_room", pinned
    from the JAX package) reproduced through the crossing kernel;
-5. the main paths, reset plus 64 steps of the throughput program at 4096
-   envs, through the kernels (launch count = observations made) and through
-   the plain paths, with identical final states and checksums, and the
-   env-steps/s of each run: ``auto`` (the crossing kernel) against
-   ``crossing``; ``fused`` and ``pallas`` against ``scan`` (camera_u32);
-   ``crossing_kernel_fused`` against ``crossing`` and ``crossing_kernel``
-   (camera_pal8); and ``auto`` in camera_pal8 at 1024 envs.
+5. the main paths, reset plus 64 steps of the throughput program, through
+   the kernels (launch count = observations made, no other kernel
+   launched) and through the plain paths, with identical final states and
+   checksums, and the env-steps/s of each run:
+   * SingleRoom (reference default, 8x16, 512 rays x 256 px) at 4096 envs:
+     ``auto`` (the crossing kernel) against ``crossing``; ``fused`` and
+     ``pallas`` against ``scan`` (camera_u32); ``crossing_kernel_fused``
+     against ``crossing`` and ``crossing_kernel`` (camera_pal8); and
+     ``auto`` in camera_pal8 at 1024 envs;
+   * the other families at the widths of the JAX package's bench rows:
+     RandomRoom 16x16, 256 rays x 128 px, 8192 envs, reset budget 256, in
+     camera_rgb (``auto`` against ``crossing``) and camera_pal8
+     (``crossing_kernel_fused`` against ``crossing`` and
+     ``crossing_kernel``); Maze 17x17, 64 x 64, 32768 envs, budget 512
+     (``auto`` against ``crossing``); DynamicRoom and LockedRoom, 64 x 64,
+     8192 envs, ``fused`` (block and door words) against ``scan``;
+     MultiGoalRoom, 64 x 64, 8192 envs, ``pallas`` against ``scan``, and
+     ``analytic`` (no kernel) against ``crossing``: identical states,
+     checksums within 1e-6 relative, reset frames 99.9% equal.
+   Each budgeted phase prints how many envs its budget reset.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record, each kernel's
+launches summed over the main paths that route through it; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: there is no
 fallback, and a machine without a CUDA device, or a directory without the
 package, exits non-zero before printing a result.
@@ -337,16 +351,38 @@ def golden_frame(game, device) -> np.ndarray:
     raise RuntimeError("no structural golden frame found")
 
 
-def run_main_path(cfg, num_envs, steps, device):
-    """Reset + ``steps`` steps of the throughput program; returns
-    (final state, checksum, obs of the reset, seconds of the steps).  The
+def count_budgeted_resets(env):
+    """Make ``env.step`` add, on the device, the envs its budgeted reset
+    re-initialized (needy before the step and not pending after it) to
+    ``env.resets``, and the envs left pending to ``env.frozen``."""
+    import torch
+
+    env.resets = torch.zeros((), dtype=torch.int64, device=env.device)
+    env.frozen = torch.zeros((), dtype=torch.int64, device=env.device)
+    step = env.step
+
+    def counted(state, action):
+        res = step(state, action)
+        env.resets += ((state.pending_reset | res.done) & ~res.state.pending_reset).sum()
+        env.frozen += res.state.pending_reset.sum()
+        return res
+
+    env.step = counted
+
+
+def run_main_path(game, cfg, num_envs, steps, device, reset_budget=0):
+    """Reset + ``steps`` steps of the throughput program of
+    ``Env(game(cfg))``; returns (final state, checksum, obs of the reset,
+    seconds of the steps, (budgeted resets, frozen env-steps) or None).  The
     timed region ends on the host read of the checksum."""
     import torch
 
     import raycastworlds_tpu_torch as rt
     from raycastworlds_tpu_torch.parallel import rollout
 
-    env = rt.Env(rt.SingleRoom(cfg), num_envs=num_envs, device=device)
+    env = rt.Env(game(cfg), num_envs=num_envs, device=device, reset_budget=reset_budget)
+    if reset_budget:
+        count_budgeted_resets(env)
     state, obs = env.reset(rt.rng.PRNGKey(SEED))
     run = rollout.steps_per_second_program(env, steps)
     torch.cuda.synchronize()
@@ -354,7 +390,8 @@ def run_main_path(cfg, num_envs, steps, device):
     state, acc = run(state, rt.rng.PRNGKey(SEED + 1))
     checksum = float(acc)
     seconds = time.perf_counter() - t0
-    return state, checksum, obs, seconds
+    budget = (int(env.resets), int(env.frozen)) if reset_budget else None
+    return state, checksum, obs, seconds, budget
 
 
 def same_state(a, b) -> bool:
@@ -363,21 +400,29 @@ def same_state(a, b) -> bool:
     return all(torch.equal(x, b.leaves()[k]) for k, x in a.leaves().items())
 
 
-def main_path_phase(label, cfg, num_envs, device, kernel_backend, kernel, plains,
-                    turns=True) -> int:
+def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, plains,
+                    turns=True, reset_budget=0) -> dict:
     """The kernel path against each plain path on one card: kernel, the
     plains, the plains again in reverse and the kernel again (``turns``),
     or kernel then plains.  Every count is set to 0 just before the first
     kernel run and read just after it: ``kernel`` must have launched once
-    per observation made and every other kernel never.  Every run must end
-    in the first run's state and checksum.  Returns ``kernel``'s launches."""
+    per observation made and every other kernel never (``kernel`` None: no
+    kernel at all).  Every run must end in the first run's state and
+    checksum; for ``kernel`` None (the analytic cast, whose distances are
+    not bit-exact with the crossing's) the checksums must agree to 1e-6
+    relative and the reset frames on 99.9% of their values.  A budgeted
+    phase must reset envs through its budget.  Returns the launches of the
+    first run, by kernel."""
     import dataclasses
+
+    import torch
 
     kcfg = dataclasses.replace(cfg, raycast_backend=kernel_backend)
     counters = wrappers()
     for fn in counters.values():
         fn.launches = 0
-    k_state, k_sum, obs, k_s = run_main_path(kcfg, num_envs, STEPS, device)
+    k_state, k_sum, obs, k_s, budget = run_main_path(
+        game, kcfg, num_envs, STEPS, device, reset_budget)
     launches = {name: fn.launches for name, fn in counters.items()}
     want = {name: (STEPS + 1 if name == kernel else 0) for name in counters}
     check(launches == want,
@@ -386,20 +431,38 @@ def main_path_phase(label, cfg, num_envs, device, kernel_backend, kernel, plains
     check(tuple(obs.shape) == (num_envs,) + cfg.obs_shape,
           f"{label}: obs shape {tuple(obs.shape)}")
     check(math.isfinite(k_sum), f"{label}: checksum {k_sum}")
+    if reset_budget:
+        check(budget[0] > 0, f"{label}: the reset budget reset no env")
     order = list(plains) + (list(plains)[::-1] + [kernel_backend] if turns else [])
     rates = [(kernel_backend, num_envs * STEPS / k_s)]
+    sums = [(kernel_backend, k_sum)]
     for backend in order:
-        st, sm, _, s = run_main_path(
-            dataclasses.replace(cfg, raycast_backend=backend), num_envs, STEPS, device)
-        check(same_state(st, k_state) and sm == k_sum,
-              f"{label}: {backend} path final state/checksum differ ({sm} vs {k_sum})")
+        st, sm, p_obs, s, p_budget = run_main_path(
+            game, dataclasses.replace(cfg, raycast_backend=backend), num_envs, STEPS,
+            device, reset_budget)
+        check(same_state(st, k_state) and p_budget == budget,
+              f"{label}: {backend} path final state differs")
+        if kernel is None:
+            as_i32 = lambda x: x.view(torch.int32) if x.dtype == torch.uint32 else x  # noqa: E731
+            equal = float((as_i32(p_obs) == as_i32(obs)).to(torch.float32).mean())
+            check(abs(sm - k_sum) <= 1e-6 * abs(sm) and equal >= 0.999,
+                  f"{label}: {backend} checksum {sm} vs {k_sum}, reset frames "
+                  f"{equal:.6f} equal")
+        else:
+            check(sm == k_sum, f"{label}: {backend} checksum differs ({sm} vs {k_sum})")
         rates.append((backend, num_envs * STEPS / s))
+        sums.append((backend, sm))
+    agree = ("checksums " + ", ".join(f"{b} {x!r}" for b, x in sums)
+             if kernel is None else f"checksum {k_sum!r} (all paths equal)")
     print(f"main path {label}: {num_envs} envs x {STEPS} steps, obs "
-          f"{tuple(obs.shape)} {obs.dtype}, checksum {k_sum!r} (all paths equal), "
-          f"{kernel} launches {launches[kernel]}")
+          f"{tuple(obs.shape)} {obs.dtype}, {agree}, "
+          + (f"{kernel} launches {launches[kernel]}" if kernel else "no kernel launched"))
+    if reset_budget:
+        print(f"main path {label}: budget {reset_budget} reset {budget[0]} envs, "
+              f"{budget[1]} env-steps frozen awaiting a reset (every path)")
     print(f"main path {label} env-steps/s in run order: "
           + ", ".join(f"{b} {x:.1f}" for b, x in rates))
-    return launches[kernel]
+    return launches
 
 
 def main() -> None:
@@ -451,21 +514,43 @@ def main() -> None:
     u32, pal8 = rt.EnvConfig(), rt.EnvConfig(obs_type="camera_pal8")
     check(u32.resolved_raycast_backend(device.type) == "crossing_kernel",
           "auto does not resolve to the crossing kernel on this device")
-    launches = {
-        "crossing_cast": main_path_phase(
-            "auto camera_u32", u32, 4096, device, "auto", "crossing_cast",
-            ["crossing"], turns=False),
-        "dda_render_u32": main_path_phase(
-            "fused camera_u32", u32, 4096, device, "fused", "dda_render_u32", ["scan"]),
-        "dda_cast": main_path_phase(
-            "pallas camera_u32", u32, 4096, device, "pallas", "dda_cast", ["scan"]),
-        "crossing_render_pal8": main_path_phase(
-            "crossing_kernel_fused camera_pal8", pal8, 4096, device,
-            "crossing_kernel_fused", "crossing_render_pal8",
-            ["crossing", "crossing_kernel"]),
-    }
-    main_path_phase("auto camera_pal8", pal8, 1024, device, "auto", "crossing_cast",
-                    ["crossing"], turns=False)
+    room = dict(height_tile_map_tu=16, width_tile_map_tu=16, num_rays=256,
+                height_camera_view_pu=128)
+    small = dict(num_rays=64, height_camera_view_pu=64)
+    phases = [
+        ("auto camera_u32", rt.SingleRoom, u32, 4096, "auto", "crossing_cast",
+         ["crossing"], dict(turns=False)),
+        ("fused camera_u32", rt.SingleRoom, u32, 4096, "fused", "dda_render_u32",
+         ["scan"], {}),
+        ("pallas camera_u32", rt.SingleRoom, u32, 4096, "pallas", "dda_cast", ["scan"], {}),
+        ("crossing_kernel_fused camera_pal8", rt.SingleRoom, pal8, 4096,
+         "crossing_kernel_fused", "crossing_render_pal8", ["crossing", "crossing_kernel"], {}),
+        ("auto camera_pal8", rt.SingleRoom, pal8, 1024, "auto", "crossing_cast",
+         ["crossing"], dict(turns=False)),
+        ("random_room camera_rgb", rt.RandomRoom,
+         rt.RandomRoomConfig(**room, obs_type="camera_rgb"), 8192, "auto", "crossing_cast",
+         ["crossing"], dict(turns=False, reset_budget=256)),
+        ("random_room camera_pal8", rt.RandomRoom,
+         rt.RandomRoomConfig(**room, obs_type="camera_pal8"), 8192,
+         "crossing_kernel_fused", "crossing_render_pal8", ["crossing", "crossing_kernel"],
+         dict(reset_budget=256)),
+        ("maze camera_u32", rt.Maze, rt.MazeConfig(**small), 32768, "auto", "crossing_cast",
+         ["crossing"], dict(turns=False, reset_budget=512)),
+        ("dynamic_room fused", rt.DynamicRoom, rt.DynamicRoomConfig(**small), 8192,
+         "fused", "dda_render_u32", ["scan"], {}),
+        ("locked_room fused", rt.LockedRoom, rt.LockedRoomConfig(**small), 8192,
+         "fused", "dda_render_u32", ["scan"], {}),
+        ("multi_goal pallas", rt.MultiGoalRoom, rt.MultiGoalConfig(**small), 8192,
+         "pallas", "dda_cast", ["scan"], {}),
+        ("multi_goal analytic", rt.MultiGoalRoom, rt.MultiGoalConfig(**small), 8192,
+         "analytic", None, ["crossing"], dict(turns=False)),
+    ]
+    launches = {name: 0 for name in KERNELS}
+    for label, game, cfg, num_envs, backend, kernel, plains, kw in phases:
+        run = main_path_phase(label, game, cfg, num_envs, device, backend, kernel,
+                              plains, **kw)
+        for name, n in run.items():
+            launches[name] += n
 
     print(json.dumps({"kernels": [
         {

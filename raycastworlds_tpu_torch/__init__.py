@@ -8,9 +8,11 @@ imports ``torch`` and numpy only.
 * ``EnvConfig`` -- static config, field for field the JAX package's
 * ``EnvState``  -- dataclass of batched ``[B, ...]`` tensors
 * ``SingleRoom`` -- the walled room with one goal
+* ``RandomRoom``, ``Maze``, ``MultiGoalRoom``, ``DynamicRoom``,
+  ``LockedRoom`` -- the other world families, each with its config class
 * ``Env``       -- batched auto-resetting environment on one device
 * ``rng``       -- threefry-2x32, bit-exact with ``jax.random``
-* ``ops``       -- crossing raycast (plain and CUDA kernel), collision, render
+* ``ops``       -- raycasts (plain and CUDA kernels), collision, render
 """
 
 from .config import (
@@ -23,6 +25,11 @@ from .config import (
     EnvConfig,
 )
 from .env import Env, Space, StepResult
+from .models.dynamic_room import DynamicRoom, DynamicRoomConfig
+from .models.locked_room import LockedRoom, LockedRoomConfig
+from .models.maze import Maze, MazeConfig
+from .models.multi_goal import MultiGoalConfig, MultiGoalRoom
+from .models.random_room import RandomRoom, RandomRoomConfig
 from .models.single_room import SingleRoom
 from .state import EnvState
 from . import colors, rng
@@ -36,6 +43,16 @@ __all__ = [
     "Space",
     "StepResult",
     "SingleRoom",
+    "RandomRoom",
+    "RandomRoomConfig",
+    "Maze",
+    "MazeConfig",
+    "MultiGoalRoom",
+    "MultiGoalConfig",
+    "DynamicRoom",
+    "DynamicRoomConfig",
+    "LockedRoom",
+    "LockedRoomConfig",
     "colors",
     "rng",
     "NUM_ACTIONS",

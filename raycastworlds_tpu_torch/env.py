@@ -7,9 +7,10 @@
 With ``auto_reset=True`` (default) finished envs are re-initialized inside
 the same step: the returned ``reward``/``done`` describe the finishing
 transition while ``obs``/``state`` already belong to the next episode.
-Resets are dense: every step computes a fresh reset for every env from its
-own key and selects it where the episode ended, which keeps trajectories
-reproducible per env.
+Resets are dense by default: every step computes a fresh reset for every env
+from its own key and selects it where the episode ended, which keeps
+trajectories reproducible per env.  ``reset_budget=K`` resets at most K
+envs per step instead (see :meth:`Env._budgeted_reset`).
 """
 
 from __future__ import annotations
@@ -71,16 +72,21 @@ class Env:
         ignored.  ``final_obs_in_info=True`` also renders the post-step,
         pre-reset state into ``info["final_observation"]`` (the terminal
         observation the auto-reset otherwise discards), at the cost of a
-        second cast and render per step."""
+        second cast and render per step.
+
+        ``reset_budget > 0`` (clamped to ``num_envs``) enables budgeted
+        auto-reset: at most that many envs are re-initialized per step, a
+        reset of K envs instead of a dense reset of all of them.  Envs that
+        finish beyond the budget freeze (state unchanged, reward 0, done
+        False, never truncated) with ``pending_reset`` set until a later
+        step's budget reaches them; their episode end was already reported.
+        """
         del jit, donate
-        if reset_budget > 0:
-            raise NotImplementedError(
-                "budgeted reset is not ported yet (ROADMAP Queue 1 item 12)"
-            )
         self.game = game
         self.cfg = game.cfg
         self.num_envs = num_envs
         self.auto_reset = auto_reset
+        self.reset_budget = min(reset_budget, num_envs)
         self.device = torch.device(device if device is not None else "cpu")
         self.final_obs_in_info = final_obs_in_info
 
@@ -106,9 +112,19 @@ class Env:
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
         game = self.game
         stepped = game.step_batch(state, action.to(self.device, torch.int32))
+        frozen = state.pending_reset if self.reset_budget > 0 else None
+        if frozen is not None:
+            # envs awaiting a budgeted reset discard their step
+            stepped = select(frozen, state, stepped)
+            stepped = stepped.replace(
+                reward=torch.where(frozen, 0.0, stepped.reward),
+                done=stepped.done & ~frozen,
+            )
         terminated = stepped.done
         if self.cfg.max_episode_steps > 0:
             truncated = ~terminated & (stepped.t >= self.cfg.max_episode_steps)
+            if frozen is not None:
+                truncated = truncated & ~frozen
         else:
             truncated = torch.zeros_like(terminated)
         ep_end = terminated | truncated
@@ -120,15 +136,39 @@ class Env:
         }
         if self.auto_reset and self.final_obs_in_info:
             info["final_observation"] = game.observe_batch(stepped)
-        if self.auto_reset:
-            fresh = game.reset_batch(stepped.rng_key)
-            nxt = select(ep_end, fresh, stepped)
+        if not self.auto_reset:
+            nxt = stepped.replace(done=ep_end)
+        else:
+            if frozen is not None:
+                nxt = self._budgeted_reset(stepped, frozen | ep_end)
+            else:
+                nxt = select(ep_end, game.reset_batch(stepped.rng_key), stepped)
             # reward/done of the ending transition survive the reset; done
             # marks the episode boundary (terminated or truncated).
             nxt = nxt.replace(reward=stepped.reward, done=ep_end)
-        else:
-            nxt = stepped.replace(done=ep_end)
         return StepResult(nxt, game.observe_batch(nxt), stepped.reward, ep_end, info)
+
+    def _budgeted_reset(self, stepped: EnvState, needs: torch.Tensor) -> EnvState:
+        """Reset the first ``reset_budget`` envs flagged in ``needs`` (in
+        index order); the rest keep ``pending_reset`` set.
+
+        An inclusive prefix count over ``needs`` gives each needy env its
+        slot.  Slot s resets from the key of the env holding it (the first
+        env whose count exceeds s); slots beyond the needy count take env 0's
+        key, as in the JAX package, and no env reads them.  Each selected env
+        then takes its own slot's fresh row: a gather and a per-env select,
+        with no scatter and no host read.
+        """
+        k = self.reset_budget
+        cnt = torch.cumsum(needs.to(torch.int32), dim=0)
+        slot = cnt - 1
+        sel = needs & (slot < k)
+        slots = torch.arange(k, dtype=torch.int32, device=cnt.device)
+        idx = torch.searchsorted(cnt, slots, right=True)
+        idx = torch.where(idx < needs.shape[0], idx, 0)
+        fresh = self.game.reset_batch(stepped.rng_key[idx])
+        rows = fresh.index(torch.clamp(slot, 0, k - 1).to(torch.int64))
+        return select(sel, rows, stepped).replace(pending_reset=needs & ~sel)
 
     def sample_action(self, key: torch.Tensor) -> torch.Tensor:
         shape = (self.num_envs,) + self.game.action_shape

@@ -1,7 +1,11 @@
 """Game base class: the batched step / cast / observe shared by the world
 families.  A ``Game`` carries the static ``EnvConfig`` and per-device copies
 of its lookup tables; all dynamics are functions of ``(EnvState, action)``
-over the leading env axis.  Subclasses provide ``reset_batch``.
+over the leading env axis.  Subclasses provide ``reset_batch`` and override
+the hooks their world needs: ``step_batch``, ``_packed_maps_batch`` (the
+obstacle union), ``_block_words_batch`` (tiles rendered in the block
+shades) and, for border-ring + unit-box maps, ``supports_analytic_raycast``
+with ``_analytic_boxes``.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import numpy as np
 import torch
 
 from ..config import MOVE_FORWARD, TURN_LEFT, TURN_RIGHT, EnvConfig
-from ..ops import collision, lut, raycast, render
+from ..ops import collision, lut, raycast, raycast_analytic, render
 from ..ops import raycast_crossing_kernel as rck
 from ..ops import render_fused
 from ..state import EnvState
@@ -24,11 +28,8 @@ def _check_ported(cfg: EnvConfig) -> None:
             "float64 and continuous headings are not ported yet "
             "(ROADMAP Queue 1 item 16)"
         )
-    if cfg.raycast_backend in raycast._BACKEND_ITEM:
-        raise NotImplementedError(
-            f"raycast_backend {cfg.raycast_backend!r} is not ported yet "
-            f"({raycast._BACKEND_ITEM[cfg.raycast_backend]})"
-        )
+    if cfg.wall_texture != "none":
+        raise NotImplementedError("textures are not ported yet (ROADMAP Queue 1 item 15)")
 
 
 class Game:
@@ -44,12 +45,19 @@ class Game:
         self._tables: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
     def _table(self, name: str, device: torch.device) -> torch.Tensor:
-        """The config's host LUT ``name`` as a tensor on ``device``."""
+        """The config's host LUT ``name`` as a tensor on ``device`` (uint32
+        tables, packed words, as their int32 bit patterns)."""
         key = (name, device)
         if key not in self._tables:
             host = np.ascontiguousarray(getattr(self.cfg, name))
+            if host.dtype == np.uint32:
+                host = host.view(np.int32)
             self._tables[key] = torch.from_numpy(host).to(device)
         return self._tables[key]
+
+    def _words_batch(self, name: str, b: int, device: torch.device) -> torch.Tensor:
+        """The config's packed words ``name`` for each of ``b`` envs."""
+        return self._table(name, device)[None, :].expand(b, -1).contiguous()
 
     # -- per-family -----------------------------------------------------
 
@@ -78,21 +86,30 @@ class Game:
         * actions 2/3 turn by +/-1 angle unit, modular.
         * ``done``/``reward`` are re-derived every step (not sticky).
         """
-        cfg = self.cfg
         moving, cand = self._move_candidate(state, action)
+        return self._goal_step(state, action, moving, cand, state.wall_words)
+
+    def _goal_step(self, state: EnvState, action, moving, cand, solid_words,
+                   stop=None) -> EnvState:
+        """The single-goal step of a move to ``cand``: the goal pays and
+        terminates, ``solid_words`` (int32[B, nw]) and ``stop`` (bool[B]
+        contacts, or None) block, anything else commits."""
+        cfg = self.cfg
         r = cfg.player_radius_wu
         hit_goal = moving & collision.is_colliding_with_goal(cand, state.goal_tu, r)
         hit_wall = moving & collision.is_player_colliding_packed(
-            state.wall_words, (cfg.H, cfg.W), cand, r
+            solid_words, (cfg.H, cfg.W), cand, r
         )
         reward = torch.where(
             hit_goal,
             torch.tensor(np.float32(cfg.goal_reward), device=state.device),
             torch.tensor(np.float32(0), device=state.device),
         )
-        commit = (moving & ~hit_goal & ~hit_wall)[:, None]
+        commit = moving & ~hit_goal & ~hit_wall
+        if stop is not None:
+            commit = commit & ~stop
         return state.replace(
-            pos_wu=torch.where(commit, cand, state.pos_wu),
+            pos_wu=torch.where(commit[:, None], cand, state.pos_wu),
             dir_au=self._turned_dir(state, action, moving),
             reward=reward,
             done=hit_goal,
@@ -118,29 +135,45 @@ class Game:
             torch.int32
         )
 
+    def _tile_word(self, tile_tu: torch.Tensor, nw: int) -> torch.Tensor:
+        """int32[B, nw] one-hot packed word of one tile per env."""
+        idx = tile_tu[:, 0] * self.cfg.W + tile_tu[:, 1]
+        lane = torch.arange(nw, dtype=torch.int32, device=idx.device)[None, :]
+        return torch.where(
+            lane == (idx[:, None] >> 5),
+            torch.ones_like(idx)[:, None] << (idx[:, None] & 31),
+            0,
+        ).to(torch.int32)
+
     def _packed_maps_batch(self, state: EnvState):
         """(wall_words, obstacle_words) int32[B, nw]: the obstacle map is
         the walls plus the goal bit."""
-        cfg = self.cfg
         wall_words = state.wall_words
-        gidx = state.goal_tu[:, 0] * cfg.W + state.goal_tu[:, 1]
-        nw = wall_words.shape[-1]
-        lane = torch.arange(nw, dtype=torch.int32, device=state.device)[None, :]
-        goal_vec = torch.where(
-            lane == (gidx[:, None] >> 5),
-            torch.ones_like(gidx)[:, None] << (gidx[:, None] & 31),
-            0,
-        ).to(torch.int32)
-        return wall_words, wall_words | goal_vec
+        return wall_words, wall_words | self._tile_word(state.goal_tu, wall_words.shape[-1])
 
     def _block_words_batch(self, state: EnvState):
-        """Packed words i32[B, nw] of the block tiles, or None: no ported
-        family has blocks yet (DynamicRoom is ROADMAP Queue 1 item 13)."""
+        """Packed words i32[B, nw] of the tiles rendered in the block shades,
+        or None for a world without them."""
         return None
+
+    # Worlds that are exactly border ring + K unit boxes (SingleRoom,
+    # MultiGoalRoom, DynamicRoom) can take the closed-form cast.
+    supports_analytic_raycast: bool = False
+
+    def _analytic_boxes(self, state: EnvState) -> torch.Tensor:
+        """int32[B, K, 2] box tiles of the analytic cast; rows outside the
+        interior are disabled slots."""
+        return state.goal_tu[:, None, :]
 
     def cast_batch(self, state: EnvState) -> raycast.RayHits:
         """Ray-cast every env's pose through the backend the config resolves
-        for the state's device."""
+        for the state's device; ``analytic`` takes the closed-form cast where
+        the family supports it and the scan elsewhere."""
+        if self.supports_analytic_raycast and self.cfg.raycast_backend == "analytic":
+            return raycast_analytic.cast_rays_boxes(
+                self.cfg, self._analytic_boxes(state), state.pos_wu,
+                self._ray_dirs(state),
+            )
         _, obstacle_words = self._packed_maps_batch(state)
         return raycast.cast_rays(
             self.cfg, obstacle_words, state.pos_wu, self._ray_dirs(state)
@@ -168,7 +201,7 @@ class Game:
             and cfg.wall_texture == "none"
             and cfg.dtype == "float32"
             and not cfg.continuous_heading
-            and getattr(state, "goal_words", None) is None
+            and state.goal_words is None
             and self._block_words_batch(state) is None
         )
 
@@ -198,5 +231,6 @@ class Game:
             return img.view(torch.uint32)
         hits = self.cast_batch(state)
         return render.render_observation(
-            cfg, state.wall_words, state.goal_tu, self._player_dir(state), hits
+            cfg, state.wall_words, state.goal_tu, self._player_dir(state), hits,
+            block_words=self._block_words_batch(state),
         )

@@ -1,0 +1,119 @@
+"""Maze: a binary-tree maze with rectangular rooms, new per episode.
+
+Cells sit at odd coordinates of an odd-sized map (``H = 2*CH+1``,
+``W = 2*CW+1``).  Every cell carves a passage north or west by one coin
+(edge cells have no choice), which yields a perfect maze from one vectorized
+draw; ``num_rooms`` random rectangles are then cleared, which keeps every
+tile connected, so the goal is always reachable.  Goal and spawn are two
+draws over the empty tiles.  Dynamics are SingleRoom's; every env resets
+from its own key split in the JAX package's order (next, map, goal, spawn,
+heading).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import rng
+from ..config import EnvConfig
+from ..ops import bitmap, sampling
+from ..state import EnvState
+from .base import Game
+
+
+@dataclasses.dataclass(frozen=True)
+class MazeConfig(EnvConfig):
+    """EnvConfig + maze-carving knobs.  H and W must be odd (cells at odd
+    coordinates)."""
+
+    height_tile_map_tu: int = 17
+    width_tile_map_tu: int = 17
+    num_rooms: int = 3           # rectangular rooms carved into the maze
+    room_max_half_tu: int = 2    # max room half-extent in tiles
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.height_tile_map_tu % 2 == 0 or self.width_tile_map_tu % 2 == 0:
+            raise ValueError("maze dimensions must be odd (cells at odd coords)")
+        if self.height_tile_map_tu < 5 or self.width_tile_map_tu < 5:
+            raise ValueError("maze needs at least 2x2 cells (>= 5x5 tiles)")
+        if self.num_rooms < 0:
+            raise ValueError("num_rooms must be >= 0")
+
+
+class Maze(Game):
+    def __init__(self, cfg: MazeConfig):
+        if not isinstance(cfg, MazeConfig):
+            raise TypeError("Maze requires a MazeConfig")
+        super().__init__(cfg)
+
+    def _generate_walls(self, k_map: torch.Tensor) -> torch.Tensor:
+        """bool[B, H, W] maze walls from per-env keys [B, 2]."""
+        cfg: MazeConfig = self.cfg
+        h, w = cfg.H, cfg.W
+        ch, cw = (h - 1) // 2, (w - 1) // 2
+        dev = k_map.device
+        b = k_map.shape[0]
+
+        sub = rng.split(k_map)
+        k_coin, k_rooms = sub[:, 0], sub[:, 1]
+        coin = rng.bernoulli(k_coin, 0.5, (ch, cw))               # [B, CH, CW]
+        ci = torch.arange(ch, device=dev)[:, None]
+        cj = torch.arange(cw, device=dev)[None, :]
+        # binary-tree rule: north when possible and (no west option or coin)
+        carve_north = (ci > 0) & ((cj == 0) | coin)
+        carve_west = (cj > 0) & ~carve_north
+
+        wall = torch.ones((b, h, w), dtype=torch.bool, device=dev)
+        wall[:, 1::2, 1::2] = False                               # cells
+        wall[:, 2:h - 1:2, 1::2] = ~carve_north[:, 1:, :]         # north passages
+        wall[:, 1::2, 2:w - 1:2] = ~carve_west[:, :, 1:]          # west passages
+
+        if cfg.num_rooms > 0:
+            ii = torch.arange(h, device=dev)[None, :, None]
+            jj = torch.arange(w, device=dev)[None, None, :]
+            interior = (ii > 0) & (ii < h - 1) & (jj > 0) & (jj < w - 1)
+            keys = rng.split(k_rooms, cfg.num_rooms)              # [B, rooms, 2]
+            for k in range(cfg.num_rooms):
+                ks = rng.split(keys[:, k])
+                center = rng.randint(ks[:, 0], (2,), [1, 1], [h - 1, w - 1])
+                half = rng.randint(ks[:, 1], (2,), 1, cfg.room_max_half_tu + 1)
+                room = (
+                    (torch.abs(ii - center[:, 0, None, None]) <= half[:, 0, None, None])
+                    & (torch.abs(jj - center[:, 1, None, None]) <= half[:, 1, None, None])
+                    & interior
+                )
+                wall = wall & ~room
+        return wall
+
+    def reset_batch(self, keys: torch.Tensor) -> EnvState:
+        cfg: MazeConfig = self.cfg
+        dev = keys.device
+        b = keys.shape[0]
+        sub = rng.split(keys, 5)
+        next_key, k_map, k_goal, k_spawn, k_dir = (sub[:, q] for q in range(5))
+
+        wall_map = self._generate_walls(k_map)
+        goal_tu, spawn_tu = sampling.sample_empty_tile_pair(k_goal, k_spawn, wall_map)
+
+        zeros_f = torch.zeros(b, dtype=torch.float32, device=dev)
+        falses = torch.zeros(b, dtype=torch.bool, device=dev)
+        return EnvState(
+            wall_words=bitmap.pack_bits(wall_map),
+            goal_tu=goal_tu,
+            pos_wu=spawn_tu.to(torch.float32) + 0.5,
+            dir_au=sampling.sample_heading(k_dir, cfg.num_directions),
+            reward=zeros_f,
+            done=falses,
+            rng_key=next_key.contiguous(),
+            t=torch.zeros(b, dtype=torch.int32, device=dev),
+            episode_return=zeros_f.clone(),
+            pending_reset=falses.clone(),
+            hw=(cfg.H, cfg.W),
+        )
+
+
+def make(cfg: MazeConfig | None = None, **kw) -> Maze:
+    return Maze(cfg if cfg is not None else MazeConfig(**kw))

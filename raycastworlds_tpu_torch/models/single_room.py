@@ -7,7 +7,6 @@ heading), so both packages reset every env to the same state.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import rng
@@ -18,6 +17,8 @@ from .base import Game
 
 
 class SingleRoom(Game):
+    supports_analytic_raycast = True  # border ring + the goal box
+
     def reset_batch(self, keys: torch.Tensor) -> EnvState:
         cfg = self.cfg
         dev = keys.device
@@ -25,21 +26,11 @@ class SingleRoom(Game):
         sub = rng.split(keys, 4)                                  # [B, 4, 2]
         next_key, k_goal, k_spawn, k_dir = (sub[:, q] for q in range(4))
 
-        words = self._table("border_wall_words", dev).view(torch.int32)
-        wall_words = words[None, :].expand(b, -1).contiguous()
+        wall_words = self._words_batch("border_wall_words", b, dev)
         goal_tu = sampling.sample_interior_tile(k_goal, cfg.H, cfg.W)
-        # Spawn: uniform over interior tiles minus the goal, in closed form
-        # (the k-th empty tile in row-major order, skipping the goal's rank).
-        wi = cfg.W - 2
-        n = np.float32((cfg.H - 2) * wi - 1)
-        u = rng.uniform(k_spawn, ())
-        k = torch.clamp(
-            torch.floor(u * torch.tensor(n, device=dev)),
-            0.0, float(max(n - 1.0, 0.0)),
-        ).to(torch.int32)
-        goal_rank = sampling.interior_rank(goal_tu, cfg.W)
-        r = k + (k >= goal_rank).to(torch.int32)
-        spawn_tu = torch.stack([1 + r // wi, 1 + r % wi], dim=-1)
+        # Spawn: uniform over interior tiles minus the goal, in closed form.
+        spawn_tu = sampling.sample_empty_interior_tile(
+            k_spawn, cfg.H, cfg.W, sampling.interior_rank(goal_tu, cfg.W)[:, None])
         pos_wu = spawn_tu.to(torch.float32) + 0.5                # tile centre
         dir_au = sampling.sample_heading(k_dir, cfg.num_directions)
 

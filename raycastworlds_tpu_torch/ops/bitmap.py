@@ -72,6 +72,32 @@ def pack_bits_np(bool_map) -> np.ndarray:
     return np.sum(flat * weights, axis=-1, dtype=np.uint64).astype(np.uint32)
 
 
+def tiles_to_words(tiles: torch.Tensor, shape, nw: int) -> torch.Tensor:
+    """Pack K point tiles per env (i32[B, K, >=2] rows (i, j, ...)) into
+    int32[B, nw] occupancy words: K one-hot ORs, no dense map.  Rows with a
+    negative i are disabled slots and contribute nothing."""
+    _, w = shape
+    idx = tiles[..., 0] * w + tiles[..., 1]                     # [B, K]
+    lane = torch.arange(nw, dtype=torch.int32, device=tiles.device)
+    word_sel = ((idx[..., None] >> 5) == lane) & (tiles[..., 0] >= 0)[..., None]
+    bit = torch.ones_like(idx) << (idx & 31)
+    contrib = torch.where(word_sel, bit[..., None], 0)          # [B, K, nw]
+    out = torch.zeros(contrib.shape[0], nw, dtype=torch.int32, device=tiles.device)
+    for q in range(contrib.shape[1]):
+        out = out | contrib[:, q]
+    return out
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word's uint32 pattern, as int32 (SWAR count
+    in int64, where every shift is logical)."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101 >> 24) & 0xFF).to(torch.int32)
+
+
 def lookup_bit(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Test bit ``idx`` of packed words.
 

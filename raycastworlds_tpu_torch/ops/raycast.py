@@ -281,9 +281,12 @@ def cast_rays(
       through this one for every other observation);
     * ``crossing``: the plain crossing cast;
     * ``pallas``: the DDA kernel;
-    * ``scan``, ``scan_flat`` and ``fused``: the plain DDA (the fused
-      backend renders camera_u32/rgb/gray in its own kernel and casts
-      through the scan for every other observation).
+    * ``scan``, ``scan_flat``, ``fused`` and ``analytic``: the plain DDA
+      (the fused backend renders camera_u32/rgb/gray in its own kernel and
+      casts through the scan for every other observation; the analytic
+      backend reaches this function only for families whose maps are not
+      border ring + boxes, which cast through the scan as in the JAX
+      package).
     """
     backend = cfg.resolved_raycast_backend(pos_wu.device.type)
     shape = (cfg.H, cfg.W)
@@ -303,19 +306,11 @@ def cast_rays(
         hit_tu, hit_dim, dist = raycast_pallas.cast_rays_pallas_batched(
             obstacle_words, shape, pos_wu, ray_dirs, cfg.dda_steps
         )
-    elif backend in ("scan", "scan_flat", "fused"):
+    elif backend in ("scan", "scan_flat", "fused", "analytic"):
         hit_tu, hit_dim, dist = cast_rays_scan(
             obstacle_words, shape, pos_wu, ray_dirs, cfg.dda_steps,
             early_exit=cfg.dda_early_exit,
         )
     else:
-        raise NotImplementedError(
-            f"raycast_backend {backend!r} is not ported yet ({_BACKEND_ITEM[backend]})"
-        )
+        raise ValueError(f"unknown raycast_backend: {backend}")
     return RayHits(ray_dirs=ray_dirs, hit_tu=hit_tu, hit_dim=hit_dim, dist_wu=dist)
-
-
-# Where each backend that is not ported yet stands in ROADMAP.md.
-_BACKEND_ITEM = {
-    "analytic": "ROADMAP Queue 1 item 11",
-}

@@ -2,7 +2,7 @@
 
 Per ray: fisheye-correct the cast distance by the dot with the player
 direction, compute a wall-column height, pick a two-shade slab colour by
-(wall or goal) x (hit-face axis), and write a mirrored ceiling/wall/floor
+(wall, goal or block) x (hit-face axis), and write a mirrored ceiling/wall/floor
 column.  The whole ``[B, H_pu, R]`` image is one compare-and-select over a
 row index against per-ray pads.
 
@@ -55,28 +55,26 @@ def _hit_tile_bit(shape, hits: RayHits) -> torch.Tensor:
     return hi * w + hj
 
 
-def _hit_is_wall(wall_words, shape, hits: RayHits) -> torch.Tensor:
-    return bitmap.lookup_bit(wall_words, _hit_tile_bit(shape, hits))
+def _slab_slots(wall_words, shape, hits: RayHits, block_words=None) -> torch.Tensor:
+    """Per-ray slab slot i32[B, R] in ``colors.TEX_SLABS`` order (wall_i,
+    wall_j, goal_i, goal_j, block_i, block_j): wall where the hit tile has
+    the wall bit, else block where ``block_words`` (packed block tiles, or
+    None) has it, else goal; shade by hit-face axis."""
+    bit = _hit_tile_bit(shape, hits)
+    is_wall = bitmap.lookup_bit(wall_words, bit)
+    dim_j = (hits.hit_dim == 1).to(torch.int32)
+    slot = torch.where(is_wall, dim_j, 2 + dim_j)
+    if block_words is not None:
+        is_block = bitmap.lookup_bit(block_words, bit)
+        slot = torch.where(is_block & ~is_wall, 4 + dim_j, slot)
+    return slot
 
 
 def column_colors_u32(wall_words, shape, hits: RayHits,
                       block_words=None) -> torch.Tensor:
-    """Per-ray slab colour, int32[B, R]: wall shades where the hit tile has
-    the wall bit, goal shades otherwise; shade by hit-face axis.
-    ``block_words`` (packed block tiles, or None) adds a third pair of
-    shades for block tiles that are not walls."""
-    bit = _hit_tile_bit(shape, hits)
-    is_wall = bitmap.lookup_bit(wall_words, bit)
-    dim_i = hits.hit_dim == 0
-    c = lambda v: _const(v, hits.hit_dim).to(torch.int32)  # noqa: E731
-    wall_c = torch.where(dim_i, c(colors.WALL_DIM_I), c(colors.WALL_DIM_J))
-    goal_c = torch.where(dim_i, c(colors.GOAL_DIM_I), c(colors.GOAL_DIM_J))
-    out = torch.where(is_wall, wall_c, goal_c)
-    if block_words is not None:
-        is_block = bitmap.lookup_bit(block_words, bit)
-        block_c = torch.where(dim_i, c(colors.BLOCK_DIM_I), c(colors.BLOCK_DIM_J))
-        out = torch.where(is_block & ~is_wall, block_c, out)
-    return out
+    """Per-ray slab colour, int32[B, R] 0x00RRGGBB, of each slab slot."""
+    table = torch.tensor(colors.TEX_SLABS, dtype=torch.int32, device=hits.hit_dim.device)
+    return table[_slab_slots(wall_words, shape, hits, block_words)]
 
 
 def render_constants(cfg: EnvConfig):
@@ -179,28 +177,20 @@ def _as_i32(img: torch.Tensor) -> torch.Tensor:
     return img.view(torch.int32) if img.dtype == torch.uint32 else img
 
 
-def column_colors_pal8(wall_words, shape, hits: RayHits) -> torch.Tensor:
+_PAL_SLABS = (colors.PAL_WALL_DIM_I, colors.PAL_WALL_DIM_J, colors.PAL_GOAL_DIM_I,
+              colors.PAL_GOAL_DIM_J, colors.PAL_BLOCK_DIM_I, colors.PAL_BLOCK_DIM_J)
+
+
+def column_colors_pal8(wall_words, shape, hits: RayHits,
+                       block_words=None) -> torch.Tensor:
     """Per-ray slab palette index, uint8[B, R] -- the 1-byte twin of
-    :func:`column_colors_u32` (same predicates)."""
-    is_wall = _hit_is_wall(wall_words, shape, hits)
-    dim_i = hits.hit_dim == 0
-    c = lambda v: _const(v, hits.hit_dim).to(torch.uint8)  # noqa: E731
-    wall_c = torch.where(dim_i, c(colors.PAL_WALL_DIM_I), c(colors.PAL_WALL_DIM_J))
-    goal_c = torch.where(dim_i, c(colors.PAL_GOAL_DIM_I), c(colors.PAL_GOAL_DIM_J))
-    return torch.where(is_wall, wall_c, goal_c)
-
-
-def _slab_slots(wall_words, shape, hits: RayHits) -> torch.Tensor:
-    """Per-ray textured-slab slot i32[B, R] in ``colors.TEX_SLABS`` order
-    (wall_i, wall_j, goal_i, goal_j): same predicates as
-    :func:`column_colors_u32`, an index instead of a colour."""
-    is_wall = _hit_is_wall(wall_words, shape, hits)
-    dim_j = (hits.hit_dim == 1).to(torch.int32)
-    return torch.where(is_wall, dim_j, 2 + dim_j)
+    :func:`column_colors_u32` (same slots)."""
+    table = torch.tensor(_PAL_SLABS, dtype=torch.uint8, device=hits.hit_dim.device)
+    return table[_slab_slots(wall_words, shape, hits, block_words)]
 
 
 def render_camera_pal8(
-    cfg: EnvConfig, wall_words, player_dir_wu, hits: RayHits
+    cfg: EnvConfig, wall_words, player_dir_wu, hits: RayHits, block_words=None
 ) -> torch.Tensor:
     """uint8[B, H_pu, R] palette-index camera views; lossless:
     ``pal8_to_u32(render_camera_pal8(...)) == render_camera_u32(...)``."""
@@ -208,7 +198,7 @@ def render_camera_pal8(
         raise _not_ported("textures")
     pad, _ = column_pads(player_dir_wu, hits, cfg.height_camera_view_pu,
                          *render_constants(cfg))
-    slab = column_colors_pal8(wall_words, (cfg.H, cfg.W), hits)
+    slab = column_colors_pal8(wall_words, (cfg.H, cfg.W), hits, block_words)
     pad = torch.flip(pad, dims=(1,))
     slab = torch.flip(slab, dims=(1,))
     u8 = lambda v: _const(v, pad).to(torch.uint8)  # noqa: E731
@@ -226,10 +216,12 @@ def pal8_to_u32(img: torch.Tensor, palette=None) -> torch.Tensor:
 
 
 def render_observation(
-    cfg: EnvConfig, wall_words, goal_tu, player_dir_wu, hits: RayHits
+    cfg: EnvConfig, wall_words, goal_tu, player_dir_wu, hits: RayHits,
+    block_words=None,
 ) -> torch.Tensor:
     """Dispatch on ``cfg.obs_type``; the result has the observation space's
-    dtype (``camera_u32`` as a uint32 view)."""
+    dtype (``camera_u32`` as a uint32 view).  ``block_words`` (packed block
+    tiles, or None) render in the block shades."""
     if cfg.obs_type == "depth":
         return torch.flip(projected_depth(player_dir_wu, hits), dims=(1,))
     if cfg.obs_type == "tile_grid":
@@ -237,8 +229,8 @@ def render_observation(
     if cfg.obs_type in ("top_u32", "top_rgb"):
         raise _not_ported("top view")
     if cfg.obs_type == "camera_pal8":
-        return render_camera_pal8(cfg, wall_words, player_dir_wu, hits)
-    img = render_camera_u32(cfg, wall_words, player_dir_wu, hits)
+        return render_camera_pal8(cfg, wall_words, player_dir_wu, hits, block_words)
+    img = render_camera_u32(cfg, wall_words, player_dir_wu, hits, block_words)
     if cfg.obs_type == "camera_u32":
         return img.view(torch.uint32)
     if cfg.obs_type == "camera_rgb":

@@ -2,7 +2,8 @@
 
 The counterpart of ``jax.random`` as the engine uses it, reproducing JAX's
 bits exactly (JAX 0.9 with ``jax_threefry_partitionable=True``, its
-default): ``PRNGKey``, ``split``, ``randint`` and float32 ``uniform``.  All of
+default): ``PRNGKey``, ``split``, ``randint``, float32 ``uniform`` and
+``bernoulli``.  All of
 the engine's randomness enters through these draws, with per-env keys, which
 is what makes trajectories reproducible per env and independent of the batch
 size.
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -100,6 +102,14 @@ def uniform(
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
+    ``uniform(key, shape) < p`` with ``p`` rounded to float32 first, as JAX
+    compares against the weakly typed scalar."""
+    u = uniform(key, shape)
+    return u < torch.tensor(np.float32(p), device=key.device)
 
 
 IntBound = Union[int, Sequence[int]]

@@ -12,7 +12,16 @@ dimension written out as the leading ``[B]`` axis:
   rng_key         int64[B, 2]   per-env threefry key (uint32 words, see rng)
   t               int32[B]      steps taken in the current episode
   episode_return  float32[B]
-  pending_reset   bool[B]       always False under dense auto-reset
+  pending_reset   bool[B]       episode ended, reset still owed (only under
+                                ``Env(reset_budget=K)``)
+
+and the optional leaves of the families that use them (None elsewhere):
+
+  goal_words      int32[B, nw]  packed goal mask (MultiGoalRoom)
+  goal_tiles      int32[B, K, 2] its goal tiles, collected ones at (-1, -1)
+  blocks          int32[B, K, 3] moving blocks (i, j, dir) (DynamicRoom)
+  key_tu          int32[B, 2]   key tile (LockedRoom)
+  key_held        bool[B]       key collected: the doors are gone
 
 ``hw`` is the static map size.  The engine has no model weights: the state
 is what carries across steps, and ``from_numpy``/``to_numpy`` move it to and
@@ -22,7 +31,7 @@ from the JAX package's leaves (as numpy arrays) bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +40,9 @@ LEAVES = (
     "wall_words", "goal_tu", "pos_wu", "dir_au", "reward", "done",
     "rng_key", "t", "episode_return", "pending_reset",
 )
+OPTIONAL_LEAVES = ("goal_words", "blocks", "goal_tiles", "key_tu", "key_held")
+# Leaves holding packed words: int32 here, uint32 in the JAX package.
+_WORD_LEAVES = ("wall_words", "goal_words")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +58,11 @@ class EnvState:
     episode_return: torch.Tensor
     pending_reset: torch.Tensor
     hw: Tuple[int, int] = None
+    goal_words: Optional[torch.Tensor] = None
+    blocks: Optional[torch.Tensor] = None
+    goal_tiles: Optional[torch.Tensor] = None
+    key_tu: Optional[torch.Tensor] = None
+    key_held: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -55,18 +72,28 @@ class EnvState:
         return dataclasses.replace(self, **kw)
 
     def leaves(self) -> Dict[str, torch.Tensor]:
-        return {k: getattr(self, k) for k in LEAVES}
+        """Every leaf that is not None, required leaves first."""
+        out = {k: getattr(self, k) for k in LEAVES}
+        for k in OPTIONAL_LEAVES:
+            if getattr(self, k) is not None:
+                out[k] = getattr(self, k)
+        return out
 
     def to(self, device) -> "EnvState":
         return self.replace(**{k: v.to(device) for k, v in self.leaves().items()})
 
+    def index(self, idx: torch.Tensor) -> "EnvState":
+        """The envs ``idx`` (int[K]) of every leaf: a state of K envs."""
+        return self.replace(**{k: v[idx] for k, v in self.leaves().items()})
+
     @classmethod
     def from_numpy(cls, leaves: Dict[str, np.ndarray], device=None) -> "EnvState":
         """Build a state from the JAX package's ``EnvState`` leaves given as
-        numpy arrays (uint32 words and keys, int32, float32, bool)."""
+        numpy arrays (uint32 words and keys, int32, float32, bool).  Optional
+        leaves that are absent or None stay None."""
         def conv(name, a):
             a = np.asarray(a)
-            if name == "wall_words":
+            if name in _WORD_LEAVES:
                 a = a.astype(np.uint32).view(np.int32)
             elif name == "rng_key":
                 a = a.astype(np.uint32).astype(np.int64)
@@ -76,17 +103,21 @@ class EnvState:
         if missing:
             raise KeyError(f"missing state leaves: {missing}")
         hw = leaves.get("hw")
+        present = LEAVES + tuple(
+            k for k in OPTIONAL_LEAVES if leaves.get(k) is not None
+        )
         return cls(
-            **{k: conv(k, leaves[k]) for k in LEAVES},
+            **{k: conv(k, leaves[k]) for k in present},
             hw=tuple(hw) if hw is not None else None,
         )
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
-        """The inverse of :meth:`from_numpy`: the JAX package's leaf dtypes."""
+        """The inverse of :meth:`from_numpy`: the JAX package's leaf dtypes,
+        for every leaf that is not None."""
         out = {}
         for k, v in self.leaves().items():
             a = v.detach().cpu().numpy()
-            if k == "wall_words":
+            if k in _WORD_LEAVES:
                 a = a.view(np.uint32)
             elif k == "rng_key":
                 a = a.astype(np.uint32)
@@ -95,11 +126,13 @@ class EnvState:
 
 
 def select(pred: torch.Tensor, on_true: EnvState, on_false: EnvState) -> EnvState:
-    """Per-env select: ``pred`` bool[B]; every leaf has leading B."""
+    """Per-env select: ``pred`` bool[B]; every leaf has leading B, and both
+    states carry the same optional leaves."""
     def one(a, b):
         p = pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim()))
         return torch.where(p, a, b)
 
     t, f = on_true.leaves(), on_false.leaves()
-    return on_false.replace(**{k: one(t[k], f[k]) for k in LEAVES})
-
+    if t.keys() != f.keys():
+        raise ValueError(f"states carry different leaves: {sorted(t)} vs {sorted(f)}")
+    return on_false.replace(**{k: one(t[k], f[k]) for k in f})

@@ -87,7 +87,7 @@ def test_auto_backend_is_device_aware():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(raycast_backend="analytic"), dict(dtype="float64"),
+    [dict(wall_texture="checker"), dict(dtype="float64"),
      dict(continuous_heading=True)],
 )
 def test_unported_options_raise(kw):

@@ -117,8 +117,8 @@ def test_no_auto_reset_and_spaces():
         _np(env.sample_action(rt.rng.PRNGKey(9))),
         np.asarray(jenv.sample_action(jax.random.PRNGKey(9))),
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.Env(env.game, num_envs=4, reset_budget=2)
+    # a budget above the batch is clamped to it, as in the JAX package
+    assert rt.Env(env.game, num_envs=4, reset_budget=9).reset_budget == 4
 
 
 def test_rollouts_match_jax():

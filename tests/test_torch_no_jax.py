@@ -8,6 +8,8 @@ _PROBE = """
 import sys
 import raycastworlds_tpu_torch as rt
 import raycastworlds_tpu_torch.cuda_build
+import raycastworlds_tpu_torch.ops.flood
+import raycastworlds_tpu_torch.ops.raycast_analytic
 import raycastworlds_tpu_torch.ops.raycast_crossing_kernel
 import raycastworlds_tpu_torch.ops.raycast_pallas
 import raycastworlds_tpu_torch.ops.render_fused
@@ -15,6 +17,14 @@ import raycastworlds_tpu_torch.parallel.rollout
 for backend in ("auto", "fused"):
     cfg = rt.EnvConfig(num_rays=8, height_camera_view_pu=8, raycast_backend=backend)
     env = rt.Env(rt.SingleRoom(cfg), num_envs=2)
+    state, obs = env.reset(rt.rng.PRNGKey(0))
+    env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
+small = dict(num_rays=8, height_camera_view_pu=8)
+for game in (rt.RandomRoom(rt.RandomRoomConfig(**small)), rt.Maze(rt.MazeConfig(**small)),
+             rt.MultiGoalRoom(rt.MultiGoalConfig(**small, raycast_backend="analytic")),
+             rt.DynamicRoom(rt.DynamicRoomConfig(**small)),
+             rt.LockedRoom(rt.LockedRoomConfig(**small))):
+    env = rt.Env(game, num_envs=2, reset_budget=1)
     state, obs = env.reset(rt.rng.PRNGKey(0))
     env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
 bad = sorted(m for m in sys.modules

@@ -31,9 +31,11 @@ OBS = ["camera_u32", "camera_pal8", "camera_rgb", "camera_gray",
        "camera_gray_u8", "depth"]
 
 
-def _case(kw, b=6, seed=0):
+def _case(kw, b=6, seed=0, blocks=False):
     """Config pair, fixed hits from the JAX crossing cast on random maps,
-    and the per-env inputs of the renderer, as numpy."""
+    and the per-env inputs of the renderer, as numpy.  ``blocks``: block
+    tiles on 20% of the other empty tiles, obstacles to the cast, and their
+    packed words as ``block_words`` (None otherwise)."""
     jcfg = rcw.EnvConfig(**kw)
     h, w = jcfg.H, jcfg.W
     r = np.random.default_rng(seed)
@@ -46,6 +48,13 @@ def _case(kw, b=6, seed=0):
     obst[np.arange(b), goal[:, 0], goal[:, 1]] = True
     dir_au = r.integers(0, jcfg.num_directions, size=b).astype(np.int32)
     pos = (r.integers(1, [h - 1, w - 1], size=(b, 2)) + 0.5).astype(np.float32)
+    block_words = None
+    if blocks:
+        bl = (r.random((b, h, w)) < 0.2) & ~obst
+        pt = np.floor(pos).astype(np.int64)
+        bl[np.arange(b), pt[:, 0], pt[:, 1]] = False
+        obst |= bl
+        block_words = pack_bits_np(bl)
     dirs = jcfg.ray_fan_lut[dir_au]
     pdir = jcfg.directions_wu[dir_au]
     hit_tu, hit_dim, dist = jax.vmap(
@@ -53,7 +62,7 @@ def _case(kw, b=6, seed=0):
     )(jnp.asarray(pack_bits_np(obst)), jnp.asarray(pos), jnp.asarray(dirs))
     return dict(
         jcfg=jcfg, cfg=rt.EnvConfig(**kw), wall_words=pack_bits_np(walls),
-        goal=goal, pdir=pdir, dirs=dirs, hit_tu=np.asarray(hit_tu),
+        block_words=block_words, goal=goal, pdir=pdir, dirs=dirs, hit_tu=np.asarray(hit_tu),
         hit_dim=np.asarray(hit_dim), dist=np.asarray(dist),
     )
 
@@ -61,12 +70,14 @@ def _case(kw, b=6, seed=0):
 def _jax_obs(c, obs_type):
     cfg = dataclasses.replace(c["jcfg"], obs_type=obs_type)
 
-    def one(ww, g, pd, d, ht, hd, ds):
+    def one(ww, g, pd, d, ht, hd, ds, bw=None):
         hits = jraycast.RayHits(ray_dirs=d, hit_tu=ht, hit_dim=hd, dist_wu=ds)
-        return jrender.render_observation(cfg, ww, g, pd, hits)
+        return jrender.render_observation(cfg, ww, g, pd, hits, block_words=bw)
 
     args = [c[k] for k in ("wall_words", "goal", "pdir", "dirs", "hit_tu",
                            "hit_dim", "dist")]
+    if c["block_words"] is not None:
+        args.append(c["block_words"])
     return np.asarray(jax.jit(jax.vmap(one))(*map(jnp.asarray, args)))
 
 
@@ -76,7 +87,11 @@ def _torch_obs(c, obs_type):
     hits = raycast.RayHits(ray_dirs=t(c["dirs"]), hit_tu=t(c["hit_tu"]),
                            hit_dim=t(c["hit_dim"]), dist_wu=t(c["dist"]))
     words = t(c["wall_words"].view(np.int32))
-    return render.render_observation(cfg, words, t(c["goal"]), t(c["pdir"]), hits)
+    blocks = c["block_words"]
+    if blocks is None:
+        return render.render_observation(cfg, words, t(c["goal"]), t(c["pdir"]), hits)
+    return render.render_observation(cfg, words, t(c["goal"]), t(c["pdir"]), hits,
+                                     block_words=t(blocks.view(np.int32)))
 
 
 def _np_depth(c):
@@ -120,6 +135,24 @@ def test_render_observation(kw, obs_type):
         np.testing.assert_array_max_ulp(got, want, maxulp=MAX_ULP)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("obs_type", ["camera_u32", "camera_pal8", "camera_rgb"])
+def test_render_observation_block_words(obs_type):
+    """Block tiles render in the block shades on every unfused image path,
+    as in the JAX package (DynamicRoom's blocks, LockedRoom's doors)."""
+    c = _case(CONFIGS[1], b=8, seed=3, blocks=True)
+    got = _torch_obs(c, obs_type).numpy()
+    want = _jax_obs(c, obs_type)
+    np.testing.assert_array_equal(got, want)
+    # a block is in view
+    if obs_type == "camera_rgb":
+        assert ((want[..., 0] == 0) & (want[..., 1] == 0) & (want[..., 2] > 0)).any()
+    else:
+        shades = ((rt.colors.PAL_BLOCK_DIM_I, rt.colors.PAL_BLOCK_DIM_J)
+                  if obs_type == "camera_pal8"
+                  else (rt.colors.BLOCK_DIM_I, rt.colors.BLOCK_DIM_J))
+        assert np.isin(want, shades).any()
 
 
 @pytest.mark.parametrize("kw", CONFIGS, ids=["default_small", "odd"])
@@ -166,6 +199,25 @@ def test_slab_slots():
     want = jax.vmap(one)(*map(jnp.asarray, (c["wall_words"], c["dirs"], c["hit_tu"],
                                             c["hit_dim"], c["dist"])))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_slab_slots_block_words():
+    c = _case(CONFIGS[0], seed=2, blocks=True)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    hits = raycast.RayHits(ray_dirs=t(c["dirs"]), hit_tu=t(c["hit_tu"]),
+                           hit_dim=t(c["hit_dim"]), dist_wu=t(c["dist"]))
+    got = render._slab_slots(t(c["wall_words"].view(np.int32)), (8, 16), hits,
+                             t(c["block_words"].view(np.int32)))
+
+    def one(ww, d, ht, hd, ds, bw):
+        h = jraycast.RayHits(ray_dirs=d, hit_tu=ht, hit_dim=hd, dist_wu=ds)
+        return jrender._slab_slots(ww, (8, 16), h, bw)
+
+    want = np.asarray(jax.vmap(one)(*map(jnp.asarray, (
+        c["wall_words"], c["dirs"], c["hit_tu"], c["hit_dim"], c["dist"],
+        c["block_words"]))))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want >= 4).any()  # block slots occur
 
 
 @pytest.mark.parametrize("what", ["tile_grid", "top_u32", "texture"])
