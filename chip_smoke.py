@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase below
+    python3 chip_smoke.py --times-only   # phases 1, 2 and the kernel times
 
 Builds the CUDA kernels from ``raycastworlds_tpu_torch/csrc`` and drives the
 port's main paths, ``Env(Family(Config(raycast_backend=B)))`` with dense or
@@ -11,10 +12,14 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
 2. the kernel build and its seconds;
 3. each kernel against its plain PyTorch version on the card, exact on
    every output: at the reference-default shape (4096 envs x 512 rays x 256
-   px, 8x16 map), at maps 13x9, 24x40 and 48x48, and on sliding inputs
-   (integer positions and axis-parallel rays); the DDA kernels also with
-   a truncated march, the fused u32 render with and without block words;
-   plus each kernel's time and its plain version's;
+   px, 8x16 map), at maps 13x9, 24x40 and 48x48, on sliding inputs
+   (integer positions and axis-parallel rays); the DDA kernels also with a
+   truncated march, the fused u32 render with and without block words; the
+   crossing, DDA and pal8 kernels also on maps without a border ring, on
+   rays with a tiny component (t overflows partway along the axis) and on
+   diagonal rays from tile corners, at the main paths' maps and ray counts;
+   then each kernel's times and bound at the reference-default shape (as
+   in phase 6);
 4. the golden frame of tests/data/golden_frames.npz ("single_room", pinned
    from the JAX package) reproduced through the crossing kernel;
 5. the main paths, reset plus 64 steps of the throughput program, through
@@ -37,12 +42,23 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
      ``analytic`` (no kernel) against ``crossing``: identical states,
      checksums within 1e-6 relative, reset frames 99.9% equal.
    Each budgeted phase prints how many envs its budget reset.
+6. each main path's kernel at that path's shape, on the inputs its
+   ``observe_batch`` hands the kernel after a ``reset_batch``: kernel ==
+   plain, the device time per launch (torch.profiler's CUDA activity, the
+   median of 60 launches after a warm-up; traces under
+   ``chiprun_out/smoke_traces/``), the wrapper's host time per call (CUDA
+   events around 20 calls), the plain version's time, the bound (the
+   larger of the bytes read and written over 3.35 TB/s and the float
+   operations this data needs over 67 TFLOP/s) and the share of bound
+   (bound / device time).
 
-The line before the last is the kernels' JSON record, each kernel's
-launches summed over the main paths that route through it; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises: there is no
-fallback, and a machine without a CUDA device, or a directory without the
-package, exits non-zero before printing a result.
+The line before the last is the kernels' JSON record: each kernel's
+launches summed over the main paths that route through it, its numbers at
+the reference-default shape and, under ``shapes``, at every main-path
+shape with its launches per step; the last line is ``{"ok": true,
+"device": {...}}``.  Any failure raises: there is no fallback, and a
+machine without a CUDA device, or a directory without the package, exits
+non-zero before printing a result.
 """
 
 from __future__ import annotations
@@ -59,6 +75,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 STEPS = 64
+PROFILED_LAUNCHES = 60
+TRACE_DIR = os.path.join(ROOT, "chiprun_out", "smoke_traces")
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
+# tensor cores in operations/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float operations per grid line crossed: the crossing distance, the cross
+# coordinate's multiply and add, and the compare
+OPS_PER_CROSSING = 4
 # name -> (source, the Pallas body it replaces)
 KERNELS = {
     "crossing_cast": ("raycastworlds_tpu_torch/csrc/crossing_cast.cu",
@@ -90,45 +115,71 @@ def wrappers():
     }
 
 
-def random_maps(rng, b, h, w, density):
+# Input kinds of the kernel-vs-plain sets: "random" (interior positions,
+# random unit rays, a border ring), "sliding" (integer positions, rays with
+# an exact-zero component), "no_border" (random, no border ring: rays leave
+# the map and the clamped tile repeats), "tiny" (random, one component of
+# |d| in TINY, so that t overflows to +inf partway along that axis) and
+# "corners" (integer positions, diagonal rays through tile corners).
+KINDS = ("random", "sliding", "no_border", "tiny", "corners")
+AXES = np.array([[1, 0], [0, 1], [-1, 0], [0, -1]], np.float32)
+_S = np.float32(np.sqrt(0.5))
+DIAGONALS = np.array([[_S, _S], [-_S, _S], [-_S, -_S], [_S, -_S]], np.float32)
+TINY = np.array([1e-30, 1e-37, 3e-38, 1e-39, 1e-44], np.float32)
+
+
+def random_maps(rng, b, h, w, density, border=True):
     maps = rng.random((b, h, w)) < density
-    maps[:, 0, :] = maps[:, -1, :] = True
-    maps[:, :, 0] = maps[:, :, -1] = True
+    if border:
+        maps[:, 0, :] = maps[:, -1, :] = True
+        maps[:, :, 0] = maps[:, :, -1] = True
     return maps
 
 
-def fuzz_inputs(h, w, b, r, seed, device, sliding=False):
-    """Packed random maps (border walls, interior walls at density 0.25),
-    random interior positions and random unit directions, from
-    numpy.random.default_rng(seed).  ``sliding``: integer positions and
-    axis-parallel rays (an exact-zero component) for every ray."""
+def signed_tiny(rng, shape):
+    return TINY[rng.integers(0, len(TINY), size=shape)] * rng.choice(
+        np.array([-1, 1], np.float32), size=shape)
+
+
+def fuzz_inputs(h, w, b, r, seed, device, kind="random"):
+    """Packed random maps (interior walls at density 0.25), positions and
+    rays of ``kind`` (KINDS), from numpy.random.default_rng(seed)."""
     import torch
 
     from raycastworlds_tpu_torch.ops.bitmap import pack_bits_np
 
     rng = np.random.default_rng(seed)
-    words = pack_bits_np(random_maps(rng, b, h, w, 0.25)).view(np.int32)
-    if sliding:
+    maps = random_maps(rng, b, h, w, 0.25, border=kind != "no_border")
+    words = pack_bits_np(maps).view(np.int32)
+    if kind in ("sliding", "corners"):
         pos = rng.integers(1, [h - 1, w - 1], size=(b, 2)).astype(np.float32)
-        axis = np.array([[1, 0], [-1, 0], [0, 1], [0, -1]], np.float32)
-        dirs = axis[rng.integers(0, 4, size=(b, r))]
+        # the old sliding set's order of axes, so that its rays stay as they were
+        axes = AXES[[0, 2, 1, 3]] if kind == "sliding" else DIAGONALS
+        dirs = axes[rng.integers(0, 4, size=(b, r))]
     else:
         pos = rng.uniform([1.0, 1.0], [h - 1.0, w - 1.0], size=(b, 2)).astype(np.float32)
         ang = rng.uniform(0.0, 2.0 * np.pi, size=(b, r))
         dirs = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+        if kind == "tiny":
+            comp = rng.integers(0, 2, size=(b, r, 1))
+            np.put_along_axis(dirs, comp, signed_tiny(rng, (b, r, 1)), axis=-1)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     return t(words), t(pos), t(dirs)
 
 
-def render_inputs(h, w, b, r, hpu, seed, device, sliding=False):
+def render_inputs(h, w, b, r, hpu, seed, device, kind="random"):
     """Inputs of the fused render kernels as a SingleRoom-like world gives
     them: random walls (density 0.25) inside a border, block tiles on 15%
     of the other tiles, a goal tile on an empty interior tile (obstacles =
     walls | blocks | goal), random interior positions and headings, each
     heading's player direction and mirror-ordered ray fan (R rays, 128
-    headings), and the render constants.  ``sliding``: integer positions, axis headings with
-    exact axis player directions, and the first 8 rays of every fan along
-    the heading (an exact-zero component)."""
+    headings), and the render constants.  Other ``kind``s (KINDS):
+    "sliding", integer positions, axis headings with exact axis player
+    directions, and the first 8 rays of every fan along the heading (an
+    exact-zero component); "no_border", no border ring; "tiny", axis
+    headings whose first 8 rays have a TINY perpendicular component;
+    "corners", integer positions and diagonal headings whose first 8 rays
+    run along the diagonal."""
     import torch
 
     import raycastworlds_tpu_torch as rt
@@ -138,20 +189,31 @@ def render_inputs(h, w, b, r, hpu, seed, device, sliding=False):
     cfg = rt.EnvConfig(height_tile_map_tu=h, width_tile_map_tu=w, num_rays=r,
                        height_camera_view_pu=hpu)
     rng = np.random.default_rng(seed)
-    walls = random_maps(rng, b, h, w, 0.25)
+    walls = random_maps(rng, b, h, w, 0.25, border=kind != "no_border")
     goal = rng.integers(1, [h - 1, w - 1], size=(b, 2)).astype(np.int32)
     walls[np.arange(b), goal[:, 0], goal[:, 1]] = False
     blocks = (rng.random((b, h, w)) < 0.15) & ~walls
     blocks[np.arange(b), goal[:, 0], goal[:, 1]] = False
     obst = walls | blocks
     obst[np.arange(b), goal[:, 0], goal[:, 1]] = True
-    if sliding:
-        pos = rng.integers(1, [h - 1, w - 1], size=(b, 2)).astype(np.float32)
+    if kind in ("sliding", "corners", "tiny"):
+        if kind == "tiny":
+            pos = rng.uniform([1.0, 1.0], [h - 1.0, w - 1.0], size=(b, 2))
+        else:
+            pos = rng.integers(1, [h - 1, w - 1], size=(b, 2))
+        pos = pos.astype(np.float32)
         q = rng.integers(0, 4, size=b)
         dir_au = q * (cfg.num_directions // 4)
-        pdir = np.array([[1, 0], [0, 1], [-1, 0], [0, -1]], np.float32)[q]
+        if kind == "corners":
+            dir_au = dir_au + cfg.num_directions // 8
+            pdir = cfg.directions_wu[dir_au]
+        else:
+            pdir = AXES[q]
         dirs = cfg.ray_fan_lut_flipped[dir_au].copy()
         dirs[:, :8] = pdir[:, None, :]
+        if kind == "tiny":  # the component across the heading: 1 for q even
+            dirs[np.arange(b)[:, None], np.arange(8), (1 - q % 2)[:, None]] = (
+                signed_tiny(rng, (b, 8)))
     else:
         pos = rng.uniform([1.0, 1.0], [h - 1.0, w - 1.0], size=(b, 2)).astype(np.float32)
         dir_au = rng.integers(0, cfg.num_directions, size=b)
@@ -193,54 +255,54 @@ def kernel_vs_plain(name, label, kernel, plain) -> float:
     return err
 
 
-def compare_crossing(h, w, b, r, seed, device, sliding=False) -> float:
+def compare_crossing(h, w, b, r, seed, device, kind="random") -> float:
     from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
-    words, pos, dirs = fuzz_inputs(h, w, b, r, seed, device, sliding)
+    words, pos, dirs = fuzz_inputs(h, w, b, r, seed, device, kind)
     return kernel_vs_plain(
-        "crossing_cast", f"{h}x{w} B={b} R={r} sliding={sliding}",
+        "crossing_cast", f"{h}x{w} B={b} R={r} {kind}",
         lambda: rck.cast_rays_crossing_kernel(words, (h, w), pos, dirs),
         lambda: rck.cast_rays_crossing_kernel_ref(words, (h, w), pos, dirs),
     )
 
 
-def compare_dda(h, w, b, r, seed, device, sliding=False, max_steps=None) -> float:
+def compare_dda(h, w, b, r, seed, device, kind="random", max_steps=None) -> float:
     from raycastworlds_tpu_torch.ops import raycast, raycast_pallas
 
-    words, pos, dirs = fuzz_inputs(h, w, b, r, seed, device, sliding)
+    words, pos, dirs = fuzz_inputs(h, w, b, r, seed, device, kind)
     steps = h + w if max_steps is None else max_steps
     return kernel_vs_plain(
-        "dda_cast", f"{h}x{w} B={b} R={r} sliding={sliding} steps={steps}",
+        "dda_cast", f"{h}x{w} B={b} R={r} {kind} steps={steps}",
         lambda: raycast_pallas.cast_rays_pallas_batched(words, (h, w), pos, dirs, steps),
         lambda: raycast.cast_rays_scan(words, (h, w), pos, dirs, steps),
     )
 
 
-def compare_pal8(h, w, b, r, hpu, seed, device, sliding=False) -> float:
+def compare_pal8(h, w, b, r, hpu, seed, device, kind="random") -> float:
     from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
-    x = render_inputs(h, w, b, r, hpu, seed, device, sliding)
+    x = render_inputs(h, w, b, r, hpu, seed, device, kind)
     args = (x["obstacle_words"], x["shape"], x["pos"], x["dirs"], x["pdir"],
             x["goal"], hpu, x["num"], x["denom"])
     return kernel_vs_plain(
-        "crossing_render_pal8", f"{h}x{w} B={b} R={r} hpu={hpu} sliding={sliding}",
+        "crossing_render_pal8", f"{h}x{w} B={b} R={r} hpu={hpu} {kind}",
         lambda: rck.cast_render_pal8_kernel(*args),
         lambda: rck.cast_render_pal8_kernel_ref(*args),
     )
 
 
-def compare_fused(h, w, b, r, hpu, seed, device, sliding=False, max_steps=None,
+def compare_fused(h, w, b, r, hpu, seed, device, kind="random", max_steps=None,
                   blocks=False) -> float:
     from raycastworlds_tpu_torch.ops import render_fused
 
-    x = render_inputs(h, w, b, r, hpu, seed, device, sliding)
+    x = render_inputs(h, w, b, r, hpu, seed, device, kind)
     steps = h + w if max_steps is None else max_steps
     args = (x["obstacle_words"], x["wall_words"], x["shape"], x["pos"], x["pdir"],
             x["dirs"], steps, hpu, x["num"], x["denom"],
             x["block_words"] if blocks else None)
     return kernel_vs_plain(
         "dda_render_u32",
-        f"{h}x{w} B={b} R={r} hpu={hpu} sliding={sliding} steps={steps} blocks={blocks}",
+        f"{h}x{w} B={b} R={r} hpu={hpu} {kind} steps={steps} blocks={blocks}",
         lambda: render_fused.render_camera_fused_batched(*args),
         lambda: render_fused.render_camera_fused_batched_ref(*args),
     )
@@ -262,13 +324,169 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_phase(device):
-    """Every kernel against its plain version on every input set, then the
-    times at the reference-default shape.  Returns {name: (max err, kernel
-    ms, plain ms)}."""
-    from raycastworlds_tpu_torch.ops import raycast, raycast_pallas, render_fused
+def device_ms(name, fn, launches: int = PROFILED_LAUNCHES) -> float:
+    """Median device time of one launch of kernel ``name`` (the CUDA
+    function ``{name}_kernel``), from torch.profiler's CUDA activity over
+    ``launches`` calls of ``fn`` after a warm-up.  The trace is kept under
+    TRACE_DIR."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, f"{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    durs = [e["dur"] for e in events
+            if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"
+            and f"{name}_kernel" in e.get("name", "")]
+    check(len(durs) == launches,
+          f"the profiler saw {len(durs)} launches of {name}_kernel, expected {launches}")
+    return float(np.median(durs)) / 1e3
+
+
+def plains():
+    """name -> the kernel's plain PyTorch version (the wrapper's arguments)."""
+    from raycastworlds_tpu_torch.ops import raycast, render_fused
     from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
+    return {
+        "crossing_cast": rck.cast_rays_crossing_kernel_ref,
+        "crossing_render_pal8": rck.cast_render_pal8_kernel_ref,
+        "dda_cast": raycast.cast_rays_scan,
+        "dda_render_u32": render_fused.render_camera_fused_batched_ref,
+    }
+
+
+def work(name, args, kwargs, out):
+    """(bytes, operations) that one call of kernel ``name`` on these inputs
+    needs: every tensor argument read once and every output written once;
+    OPS_PER_CROSSING float operations for each grid line a ray crosses up
+    to its hit in this data (counted by the plain scan), plus 2 compares per
+    pixel of a render."""
+    import torch
+
+    from raycastworlds_tpu_torch.ops import raycast
+
+    tensors = [x for x in list(args) + list(kwargs.values()) if torch.is_tensor(x)]
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = sum(x.numel() * x.element_size() for x in tensors + list(outs))
+    if name in ("crossing_cast", "dda_cast"):
+        words, shape, pos, dirs = args[:4]
+        pixels = 0
+    elif name == "crossing_render_pal8":
+        words, shape, pos, dirs = args[:4]
+        pixels = out.numel()
+    else:
+        words, shape, pos, dirs = args[0], args[2], args[3], args[5]
+        pixels = out.numel()
+    hit_tu, _, _ = raycast.cast_rays_scan(words, shape, pos, dirs, sum(shape))
+    start = torch.floor(pos).to(torch.int64)[:, None, :]
+    crossings = int((hit_tu.to(torch.int64) - start).abs().sum())
+    return nbytes, OPS_PER_CROSSING * crossings + 2 * pixels
+
+
+def measure(name, label, args, kwargs=None) -> dict:
+    """Kernel ``name`` against its plain version on (args, kwargs), exact;
+    then its device ms per launch (device_ms), its wrapper's host ms per
+    call (time_ms over 20 calls), the plain version's ms, and the bound of
+    the work (the larger of its bytes over HBM_BYTES_PER_S and its
+    operations over FP32_OPS_PER_S)."""
+    kwargs = kwargs or {}
+    kernel = lambda: wrappers()[name](*args, **kwargs)  # noqa: E731
+    plain = lambda: plains()[name](*args, **kwargs)  # noqa: E731
+    err = kernel_vs_plain(name, label, kernel, plain)
+    dev = device_ms(name, kernel)
+    host = time_ms(kernel, 20)
+    plain_ms = time_ms(plain, 3)
+    nbytes, ops = work(name, args, kwargs, kernel())
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    row = dict(kernel=name, shape=label, max_abs_err=err, device_ms=dev, ms=host,
+               plain_ms=plain_ms, bytes=nbytes, ops=ops, bound_ms=max(by_bytes, by_ops),
+               bound_by="bytes" if by_bytes >= by_ops else "operations")
+    row["bound_share"] = row["bound_ms"] / dev
+    print(f"{name} at {label}: kernel == plain; device {dev:.4f} ms per launch (profiler "
+          f"median of {PROFILED_LAUNCHES}), wrapper {host:.4f} ms per call, plain "
+          f"{plain_ms:.4f} ms; bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({nbytes} B, {ops} ops), share of bound {row['bound_share']:.3f}")
+    return row
+
+
+def reference_rows(device) -> dict:
+    """measure() of every kernel at the reference-default shape (4096 envs x
+    512 rays x 256 px, 8x16, density-0.25 fuzz maps), the row kept since the
+    first slice; name -> row."""
+    words, pos, dirs = fuzz_inputs(8, 16, 4096, 512, SEED, device)
+    x = render_inputs(8, 16, 4096, 512, 256, SEED, device)
+    args = {
+        "crossing_cast": (words, (8, 16), pos, dirs),
+        "dda_cast": (words, (8, 16), pos, dirs, 24),
+        "crossing_render_pal8": (x["obstacle_words"], x["shape"], x["pos"], x["dirs"],
+                                 x["pdir"], x["goal"], 256, x["num"], x["denom"]),
+        "dda_render_u32": (x["obstacle_words"], x["wall_words"], x["shape"], x["pos"],
+                           x["pdir"], x["dirs"], 24, 256, x["num"], x["denom"]),
+    }
+    return {name: measure(name, "reference default 8x16 B=4096 R=512 hpu 256 (fuzz maps)",
+                          args[name])
+            for name in KERNELS}
+
+
+def observed_inputs(name, game, num_envs, device):
+    """(args, kwargs) with which ``game.observe_batch`` of a fresh
+    ``reset_batch`` of ``num_envs`` envs (keys split from SEED) calls the
+    wrapper of kernel ``name``."""
+    import raycastworlds_tpu_torch as rt
+
+    fn = wrappers()[name]
+    module = sys.modules[fn.__module__]
+    calls = []
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, fn.__name__, record)
+    try:
+        keys = rt.rng.split(rt.rng.PRNGKey(SEED, device), num_envs)
+        game.observe_batch(game.reset_batch(keys))
+    finally:
+        setattr(module, fn.__name__, fn)
+    check(len(calls) == 1, f"{name}: observe_batch called its wrapper {len(calls)} times")
+    return calls[0]
+
+
+def shape_rows(device, paths, launches=None) -> list:
+    """measure() of each main path's kernel at that path's shape, on the
+    inputs its observe_batch hands the kernel after a reset (observed_inputs);
+    ``launches``: the path's launches per step (per observation), by label."""
+    import dataclasses
+
+    rows = []
+    for label, game, cfg, num_envs, backend, kernel, _, _ in paths:
+        if kernel is None:
+            continue
+        g = game(dataclasses.replace(cfg, raycast_backend=backend))
+        args, kwargs = observed_inputs(kernel, g, num_envs, device)
+        shape = (f"{label}: {cfg.H}x{cfg.W} B={num_envs} R={cfg.num_rays}"
+                 + ("" if kernel.endswith("cast") else f" hpu {cfg.height_camera_view_pu}"))
+        row = measure(kernel, shape, args, kwargs)
+        if launches is not None:
+            row["launches_per_step"] = launches[label]
+        rows.append(row)
+        del args, kwargs
+    return rows
+
+
+def kernel_phase(device) -> dict:
+    """Every kernel against its plain version on every fuzz input set.
+    Returns {name: [max abs err of each set]}."""
     maps = ((13, 9), (24, 40), (48, 48))
     errs = {name: [] for name in KERNELS}
     errs["crossing_cast"].append(compare_crossing(8, 16, 4096, 512, SEED, device))
@@ -285,51 +503,33 @@ def kernel_phase(device):
             errs["dda_render_u32"].append(
                 compare_fused(h, w, 512, 512, 256, SEED + h, device, blocks=blocks))
     for (h, w, r), seed in (((8, 16, 512), SEED + 1), ((24, 40, 333), SEED + 2)):
-        errs["crossing_cast"].append(compare_crossing(h, w, 256, r, seed, device, sliding=True))
-        errs["dda_cast"].append(compare_dda(h, w, 256, r, seed, device, sliding=True))
+        errs["crossing_cast"].append(compare_crossing(h, w, 256, r, seed, device, "sliding"))
+        errs["dda_cast"].append(compare_dda(h, w, 256, r, seed, device, "sliding"))
     for (h, w, r, hpu), seed in (((8, 16, 513, 256), SEED + 3), ((24, 40, 333, 100), SEED + 4)):
         errs["crossing_render_pal8"].append(
-            compare_pal8(h, w, 256, r, hpu, seed, device, sliding=True))
+            compare_pal8(h, w, 256, r, hpu, seed, device, "sliding"))
         errs["dda_render_u32"].append(
-            compare_fused(h, w, 256, r, hpu, seed, device, sliding=True, blocks=True))
+            compare_fused(h, w, 256, r, hpu, seed, device, "sliding", blocks=True))
     errs["dda_cast"].append(compare_dda(8, 16, 512, 512, SEED + 5, device, max_steps=3))
-    errs["dda_cast"].append(compare_dda(24, 40, 256, 333, SEED + 6, device, sliding=True,
+    errs["dda_cast"].append(compare_dda(24, 40, 256, 333, SEED + 6, device, "sliding",
                                         max_steps=3))
     for blocks in (False, True):
         errs["dda_render_u32"].append(compare_fused(8, 16, 512, 512, 256, SEED + 7, device,
                                                     max_steps=3, blocks=blocks))
-
-    words, pos, dirs = fuzz_inputs(8, 16, 4096, 512, SEED, device)
-    x = render_inputs(8, 16, 4096, 512, 256, SEED, device)
-    pal8_args = (x["obstacle_words"], x["shape"], x["pos"], x["dirs"], x["pdir"],
-                 x["goal"], 256, x["num"], x["denom"])
-    fused_args = (x["obstacle_words"], x["wall_words"], x["shape"], x["pos"],
-                  x["pdir"], x["dirs"], 24, 256, x["num"], x["denom"])
-    calls = {
-        "crossing_cast": (
-            lambda: rck.cast_rays_crossing_kernel(words, (8, 16), pos, dirs),
-            lambda: rck.cast_rays_crossing_kernel_ref(words, (8, 16), pos, dirs)),
-        "dda_cast": (
-            lambda: raycast_pallas.cast_rays_pallas_batched(words, (8, 16), pos, dirs, 24),
-            lambda: raycast.cast_rays_scan(words, (8, 16), pos, dirs, 24)),
-        "crossing_render_pal8": (
-            lambda: rck.cast_render_pal8_kernel(*pal8_args),
-            lambda: rck.cast_render_pal8_kernel_ref(*pal8_args)),
-        "dda_render_u32": (
-            lambda: render_fused.render_camera_fused_batched(*fused_args),
-            lambda: render_fused.render_camera_fused_batched_ref(*fused_args)),
-    }
-    out = {}
-    for name, (kernel, plain) in calls.items():
-        k_ms = time_ms(kernel, 20)
-        p_ms = time_ms(plain, 3)
-        out[name] = (max(errs[name]), k_ms, p_ms)
-        print(f"{name}: kernel == plain on {len(errs[name])} input sets (max abs err "
-              f"{out[name][0]}); at B=4096 R=512 8x16 (hpu 256): kernel {k_ms:.4f} ms, "
-              f"plain version {p_ms:.4f} ms")
-    plain_crossing = time_ms(lambda: raycast.cast_rays_crossing(words, (8, 16), pos, dirs), 3)
-    print(f"plain crossing cast at B=4096 R=512 8x16: {plain_crossing:.4f} ms")
-    return out
+    # the sets an early-exit walk has to survive, at the main paths' maps
+    for i, kind in enumerate(("no_border", "tiny", "corners")):
+        for (h, w, r), seed in (((8, 16, 512), 20), ((16, 16, 256), 21), ((17, 17, 64), 22),
+                                ((24, 40, 333), 23)):
+            errs["crossing_cast"].append(
+                compare_crossing(h, w, 512, r, SEED + seed + 10 * i, device, kind))
+            errs["dda_cast"].append(compare_dda(h, w, 512, r, SEED + seed + 10 * i, device, kind))
+        for (h, w, r, hpu), seed in (((8, 16, 512, 256), 24), ((16, 16, 256, 128), 25),
+                                     ((8, 16, 64, 64), 26)):
+            errs["crossing_render_pal8"].append(
+                compare_pal8(h, w, 512, r, hpu, SEED + seed + 10 * i, device, kind))
+    for name, e in errs.items():
+        print(f"{name}: kernel == plain on {len(e)} fuzz input sets (max abs err {max(e)})")
+    return errs
 
 
 def golden_frame(game, device) -> np.ndarray:
@@ -465,59 +665,16 @@ def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, 
     return launches
 
 
-def main() -> None:
-    import torch
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
-    sys.path.insert(0, ROOT)
+def main_paths():
+    """(label, family, config, envs, kernel backend, kernel, plain backends,
+    options of main_path_phase) of every main path."""
     import raycastworlds_tpu_torch as rt
-    from raycastworlds_tpu_torch import cuda_build
-    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
-    device = torch.device("cuda", 0)
-
-    # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {torch.cuda.get_device_name(0)}")
-
-    # 2. build
-    t0 = time.perf_counter()
-    cuda_build.load()
-    lib = cuda_build.library_path()
-    print(f"build and load: {time.perf_counter() - t0:.2f} s -> {lib}")
-    with open(lib + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  {line.strip()}")
-
-    # 3. every kernel against its plain version on the card (exact)
-    measured = kernel_phase(device)
-
-    # 4. golden frame through the crossing kernel
-    golden = np.load(os.path.join(ROOT, "tests", "data", "golden_frames.npz"))
-    before = rck.cast_rays_crossing_kernel.launches
-    frame = golden_frame(
-        rt.SingleRoom(rt.EnvConfig(num_rays=64, height_camera_view_pu=48)), device)
-    check(rck.cast_rays_crossing_kernel.launches > before,
-          "golden frame did not go through the kernel")
-    check(frame.dtype == np.uint32 and np.array_equal(frame, golden["single_room"]),
-          "golden frame differs from tests/data/golden_frames.npz")
-    print(f"golden frame single_room {frame.shape} matches through the kernel")
-
-    # 5. the main paths
     u32, pal8 = rt.EnvConfig(), rt.EnvConfig(obs_type="camera_pal8")
-    check(u32.resolved_raycast_backend(device.type) == "crossing_kernel",
-          "auto does not resolve to the crossing kernel on this device")
     room = dict(height_tile_map_tu=16, width_tile_map_tu=16, num_rays=256,
                 height_camera_view_pu=128)
     small = dict(num_rays=64, height_camera_view_pu=64)
-    phases = [
+    return [
         ("auto camera_u32", rt.SingleRoom, u32, 4096, "auto", "crossing_cast",
          ["crossing"], dict(turns=False)),
         ("fused camera_u32", rt.SingleRoom, u32, 4096, "fused", "dda_render_u32",
@@ -545,12 +702,87 @@ def main() -> None:
         ("multi_goal analytic", rt.MultiGoalRoom, rt.MultiGoalConfig(**small), 8192,
          "analytic", None, ["crossing"], dict(turns=False)),
     ]
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
+    times_only = sys.argv[1:] == ["--times-only"]
+    check(times_only or not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
+    sys.path.insert(0, ROOT)
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch import cuda_build
+    from raycastworlds_tpu_torch.ops import raycast
+    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
+
+    device = torch.device("cuda", 0)
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    cuda_build.load()
+    lib = cuda_build.library_path()
+    print(f"build and load: {time.perf_counter() - t0:.2f} s -> {lib}")
+    with open(lib + ".log") as f:
+        for line in f:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  {line.strip()}")
+
+    paths = main_paths()
+    if times_only:
+        ref = reference_rows(device)
+        rows = shape_rows(device, paths)
+        print(json.dumps({"times": list(ref.values()) + rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+
+    # 3. every kernel against its plain version on the card (exact), and
+    # its times and bound at the reference-default shape
+    errs = kernel_phase(device)
+    ref = reference_rows(device)
+    words, pos, dirs = fuzz_inputs(8, 16, 4096, 512, SEED, device)
+    plain_crossing = time_ms(lambda: raycast.cast_rays_crossing(words, (8, 16), pos, dirs), 3)
+    print(f"plain crossing cast at B=4096 R=512 8x16: {plain_crossing:.4f} ms")
+    del words, pos, dirs
+
+    # 4. golden frame through the crossing kernel
+    golden = np.load(os.path.join(ROOT, "tests", "data", "golden_frames.npz"))
+    before = rck.cast_rays_crossing_kernel.launches
+    frame = golden_frame(
+        rt.SingleRoom(rt.EnvConfig(num_rays=64, height_camera_view_pu=48)), device)
+    check(rck.cast_rays_crossing_kernel.launches > before,
+          "golden frame did not go through the kernel")
+    check(frame.dtype == np.uint32 and np.array_equal(frame, golden["single_room"]),
+          "golden frame differs from tests/data/golden_frames.npz")
+    print(f"golden frame single_room {frame.shape} matches through the kernel")
+
+    # 5. the main paths
+    check(rt.EnvConfig().resolved_raycast_backend(device.type) == "crossing_kernel",
+          "auto does not resolve to the crossing kernel on this device")
     launches = {name: 0 for name in KERNELS}
-    for label, game, cfg, num_envs, backend, kernel, plains, kw in phases:
+    per_step = {}
+    for label, game, cfg, num_envs, backend, kernel, plains_, kw in paths:
         run = main_path_phase(label, game, cfg, num_envs, device, backend, kernel,
-                              plains, **kw)
+                              plains_, **kw)
         for name, n in run.items():
             launches[name] += n
+        if kernel is not None:
+            per_step[label] = run[kernel] / (STEPS + 1)
+
+    # 6. each kernel at every main-path shape, on the path's own inputs
+    rows = shape_rows(device, paths, per_step)
 
     print(json.dumps({"kernels": [
         {
@@ -559,9 +791,18 @@ def main() -> None:
             "source": source,
             "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": measured[name][0],
-            "ms": measured[name][1],
-            "plain_ms": measured[name][2],
+            "max_abs_err": max(errs[name] + [r["max_abs_err"] for r in rows
+                                             if r["kernel"] == name]),
+            "ms": ref[name]["ms"],
+            "plain_ms": ref[name]["plain_ms"],
+            "device_ms": ref[name]["device_ms"],
+            "bound_ms": ref[name]["bound_ms"],
+            "bound_by": ref[name]["bound_by"],
+            "bound_share": ref[name]["bound_share"],
+            "library_ms": None,
+            "shapes": [{k: r[k] for k in ("shape", "launches_per_step", "device_ms", "ms",
+                                          "plain_ms", "bound_ms", "bound_share")}
+                       for r in rows if r["kernel"] == name],
         }
         for name, (source, replaces) in KERNELS.items()
     ]}))

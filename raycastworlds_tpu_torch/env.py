@@ -1,8 +1,11 @@
 """Batched, auto-resetting environment API.
 
-    env = Env(SingleRoom(EnvConfig()), num_envs=1024, device="cuda")
+    env = Env(SingleRoom(EnvConfig()), num_envs=1024)   # on the CUDA device
     state, obs = env.reset(rng.PRNGKey(0))
     state, obs, reward, done, info = env.step(state, actions)
+
+``device`` defaults to ``"cuda"``; without a CUDA device the constructor
+raises, and ``device="cpu"`` runs the plain PyTorch versions on the CPU.
 
 With ``auto_reset=True`` (default) finished envs are re-initialized inside
 the same step: the returned ``reward``/``done`` describe the finishing
@@ -68,7 +71,9 @@ class Env:
         donate: bool = False,
         reset_budget: int = 0,
     ):
-        """``jit`` and ``donate`` have no counterpart in eager PyTorch and are
+        """``device=None`` is the CUDA device, and raises where there is
+        none: the CPU is only ever asked for, never fallen back to.
+        ``jit`` and ``donate`` have no counterpart in eager PyTorch and are
         ignored.  ``final_obs_in_info=True`` also renders the post-step,
         pre-reset state into ``info["final_observation"]`` (the terminal
         observation the auto-reset otherwise discards), at the cost of a
@@ -82,12 +87,19 @@ class Env:
         step's budget reaches them; their episode end was already reported.
         """
         del jit, donate
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Env runs on the CUDA device by default and none is "
+                    'available; pass device="cpu" to run on the CPU'
+                )
+            device = "cuda"
         self.game = game
         self.cfg = game.cfg
         self.num_envs = num_envs
         self.auto_reset = auto_reset
         self.reset_budget = min(reset_budget, num_envs)
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device)
         self.final_obs_in_info = final_obs_in_info
 
     # -- spaces ---------------------------------------------------------

@@ -149,7 +149,7 @@ def test_analytic_env_states_match_crossing():
     the crossing Env's state, and its frames differ from the crossing's only
     where a column height sits on a rounding edge."""
     cfg = rt.MultiGoalConfig(**dict(KW, num_rays=32))
-    envs = [rt.Env(rt.MultiGoalRoom(c), num_envs=8)
+    envs = [rt.Env(rt.MultiGoalRoom(c), num_envs=8, device="cpu")
             for c in (cfg, dataclasses.replace(cfg, raycast_backend="crossing"))]
     out = []
     for env in envs:

@@ -53,7 +53,7 @@ def test_budgeted_reset_matches_jax(family, budget):
         jgame, game = rcw.SingleRoom(rcw.EnvConfig(**CFG)), rt.SingleRoom(
             rt.EnvConfig(**CFG))
     jenv = rcw.Env(jgame, num_envs=B, reset_budget=budget)
-    env = rt.Env(game, num_envs=B, reset_budget=budget)
+    env = rt.Env(game, num_envs=B, reset_budget=budget, device="cpu")
     assert env.reset_budget == jenv.reset_budget == min(budget, B)
 
     js, _ = jenv.reset(jax.random.PRNGKey(4))

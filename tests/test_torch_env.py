@@ -51,7 +51,7 @@ def test_env_trajectory_matches_jax(seed, backend, final_obs):
     jenv = rcw.Env(rcw.SingleRoom(rcw.EnvConfig(**CFG)), num_envs=B,
                    final_obs_in_info=final_obs)
     env = rt.Env(rt.SingleRoom(rt.EnvConfig(**CFG, raycast_backend=backend)),
-                 num_envs=B, final_obs_in_info=final_obs)
+                 num_envs=B, final_obs_in_info=final_obs, device="cpu")
     js, jobs = jenv.reset(jax.random.PRNGKey(seed))
     ts, tobs = env.reset(rt.rng.PRNGKey(seed))
     _assert_state_equal(ts, js)
@@ -94,7 +94,7 @@ def test_state_numpy_round_trip():
         np.testing.assert_array_equal(back[k], leaves[k])
     # a state handed over from JAX steps on identically
     a = np.random.default_rng(8).integers(0, 4, size=B).astype(np.int32)
-    env = rt.Env(rt.SingleRoom(rt.EnvConfig(**CFG)), num_envs=B)
+    env = rt.Env(rt.SingleRoom(rt.EnvConfig(**CFG)), num_envs=B, device="cpu")
     _assert_state_equal(env.step(ts, torch.from_numpy(a)).state,
                         jenv.step(js, jnp.asarray(a)).state)
     with pytest.raises(KeyError):
@@ -103,7 +103,8 @@ def test_state_numpy_round_trip():
 
 def test_no_auto_reset_and_spaces():
     jenv = rcw.Env(rcw.SingleRoom(rcw.EnvConfig(**CFG)), num_envs=4, auto_reset=False)
-    env = rt.Env(rt.SingleRoom(rt.EnvConfig(**CFG)), num_envs=4, auto_reset=False)
+    env = rt.Env(rt.SingleRoom(rt.EnvConfig(**CFG)), num_envs=4, auto_reset=False,
+                 device="cpu")
     js, _ = jenv.reset(jax.random.PRNGKey(3))
     ts, _ = env.reset(rt.rng.PRNGKey(3))
     for _ in range(22):
@@ -118,7 +119,19 @@ def test_no_auto_reset_and_spaces():
         np.asarray(jenv.sample_action(jax.random.PRNGKey(9))),
     )
     # a budget above the batch is clamped to it, as in the JAX package
-    assert rt.Env(env.game, num_envs=4, reset_budget=9).reset_budget == 4
+    assert rt.Env(env.game, num_envs=4, reset_budget=9, device="cpu").reset_budget == 4
+
+
+def test_default_device_is_cuda(monkeypatch):
+    """No ``device`` means the card: without one the constructor raises and
+    names ``device="cpu"``; it never falls back to the CPU."""
+    game = rt.SingleRoom(rt.EnvConfig(**CFG))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        rt.Env(game, num_envs=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert rt.Env(game, num_envs=2).device == torch.device("cuda")
+    assert rt.Env(game, num_envs=2, device="cpu").device == torch.device("cpu")
 
 
 def test_rollouts_match_jax():
@@ -127,7 +140,7 @@ def test_rollouts_match_jax():
     (24576 per step, XLA's tree against torch's), so it is held to rtol
     1e-4 (7e-6 measured)."""
     jenv = rcw.Env(rcw.SingleRoom(rcw.EnvConfig(**CFG)), num_envs=8)
-    env = rt.Env(rt.SingleRoom(rt.EnvConfig(**CFG)), num_envs=8)
+    env = rt.Env(rt.SingleRoom(rt.EnvConfig(**CFG)), num_envs=8, device="cpu")
     js, _ = jenv.reset(jax.random.PRNGKey(11))
     ts, _ = env.reset(rt.rng.PRNGKey(11))
 

@@ -64,7 +64,8 @@ def make_envs(name, num_envs=B, **kw):
     game, config, ckw, _ = CASES[name]
     ckw = {**BASE, **ckw, **kw.pop("cfg", {})}
     jenv = rcw.Env(getattr(rcw, game)(getattr(rcw, config)(**ckw)), num_envs=num_envs, **kw)
-    env = rt.Env(getattr(rt, game)(getattr(rt, config)(**ckw)), num_envs=num_envs, **kw)
+    env = rt.Env(getattr(rt, game)(getattr(rt, config)(**ckw)), num_envs=num_envs,
+                 device="cpu", **kw)
     return jenv, env
 
 

@@ -219,7 +219,7 @@ def assert_rollouts_equal(kw_port, kw_jax, b=8, steps=20):
     from raycastworlds_tpu_torch.state import LEAVES
 
     jenv = rcw.Env(rcw.SingleRoom(rcw.EnvConfig(**kw_jax)), num_envs=b)
-    env = rt.Env(rt.SingleRoom(rt.EnvConfig(**kw_port)), num_envs=b)
+    env = rt.Env(rt.SingleRoom(rt.EnvConfig(**kw_port)), num_envs=b, device="cpu")
     jf, js = rollout_frames(jenv, jenv.reset, lambda s, a: jenv.step(s, jnp.asarray(a)),
                             jax.random.PRNGKey(11), steps, b)
     tf, ts = rollout_frames(env, env.reset, lambda s, a: env.step(s, torch.from_numpy(a)),

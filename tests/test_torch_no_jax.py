@@ -16,7 +16,7 @@ import raycastworlds_tpu_torch.ops.render_fused
 import raycastworlds_tpu_torch.parallel.rollout
 for backend in ("auto", "fused"):
     cfg = rt.EnvConfig(num_rays=8, height_camera_view_pu=8, raycast_backend=backend)
-    env = rt.Env(rt.SingleRoom(cfg), num_envs=2)
+    env = rt.Env(rt.SingleRoom(cfg), num_envs=2, device="cpu")
     state, obs = env.reset(rt.rng.PRNGKey(0))
     env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
 small = dict(num_rays=8, height_camera_view_pu=8)
@@ -24,7 +24,7 @@ for game in (rt.RandomRoom(rt.RandomRoomConfig(**small)), rt.Maze(rt.MazeConfig(
              rt.MultiGoalRoom(rt.MultiGoalConfig(**small, raycast_backend="analytic")),
              rt.DynamicRoom(rt.DynamicRoomConfig(**small)),
              rt.LockedRoom(rt.LockedRoomConfig(**small))):
-    env = rt.Env(game, num_envs=2, reset_budget=1)
+    env = rt.Env(game, num_envs=2, reset_budget=1, device="cpu")
     state, obs = env.reset(rt.rng.PRNGKey(0))
     env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
 bad = sorted(m for m in sys.modules

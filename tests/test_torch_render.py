@@ -122,7 +122,7 @@ def test_render_observation(kw, obs_type):
     c = _case(kw)
     got_t = _torch_obs(c, obs_type)
     assert got_t.dtype == rt.Env(rt.SingleRoom(
-        rt.EnvConfig(**{**kw, "obs_type": obs_type}))).observation_space.dtype
+        rt.EnvConfig(**{**kw, "obs_type": obs_type})), device="cpu").observation_space.dtype
     got = got_t.numpy()
     want = _jax_obs(c, obs_type)
     assert got.shape == want.shape
