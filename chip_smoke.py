@@ -452,6 +452,7 @@ def observed_inputs(name, game, num_envs, device):
         calls.append((args, kwargs))
         return fn(*args, **kwargs)
 
+    record.launches = 0  # the wrapper counts its launch on its module's name
     setattr(module, fn.__name__, record)
     try:
         keys = rt.rng.split(rt.rng.PRNGKey(SEED, device), num_envs)
