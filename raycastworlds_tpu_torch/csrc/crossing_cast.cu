@@ -6,14 +6,26 @@
 // per-candidate line words (`_candidate_words`, a one-hot where-sum written
 // to avoid TPU gathers) has no reason to exist here.
 //
-// One block per (env, chunk of kThreads rays).  The block reads the env's
-// packed obstacle words once into shared memory; each thread owns one ray
-// and runs crossing_ray (crossing.cuh) over both axes' grid-line crossings.
+// What bounds it on this card: its bytes are 8 of direction in and 16 of
+// results out per ray, 50.4 MB at the reference default (4096 envs x 512
+// rays: 15.1 us at 3.35 TB/s).  The first design, every ray running all
+// H + W candidates, was bound by ALU work instead: a divide, a floor/ceil, a
+// bit test and a compare per candidate, most of them past the hit.  It now
+// runs the early-exit walk of crossing.cuh (j first, then i cut at j's
+// distance, each axis left at its first occupied crossing, which the
+// monotonicity of the crossing distances in k makes the axis's minimum).
 //
-// On this card the kernel is bound by integer and ALU work per (ray,
-// candidate) -- a divide, a floor/ceil, a shared-memory bit test and a
-// compare for each of the H + W candidates -- not by bytes: it reads 8 bytes
-// of direction per ray and writes 16 bytes of results per ray.
+// Layout: a block of kThreads threads is `env_rows` envs x `ray_cols` rays,
+// ray_cols = R rounded up to a warp, at most kThreads.  At R >= 128 that is
+// one env per block, at 64 rays two: no half-empty blocks, and half as many
+// blocks to schedule, at 32768 envs x 64 rays.  The block stages its envs'
+// packed words (4-10 per env at the main paths' maps) in shared memory.
+// (A flat B*R ray grid does the same without idle lanes, but its per-thread
+// divide by R made it slower at every main-path shape; float2/int2 accesses
+// measured no faster than the 4-byte ones kept here.)  It is an ALU and
+// store kernel: no tensor cores, TMA or wgmma.  The divide stays the IEEE
+// __fdiv_rn (built -prec-div=true, -fmad=false), so the cast equals its
+// plain version, the full-loop `cast_rays_crossing_kernel_ref`, bit for bit.
 
 #include <cstdint>
 
@@ -24,6 +36,8 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kSmemWords = 48 * 1024 / static_cast<int>(sizeof(uint32_t));
 
 __global__ void __launch_bounds__(kThreads) crossing_cast_kernel(
     const uint32_t* __restrict__ words,  // [B, nw]
@@ -32,19 +46,27 @@ __global__ void __launch_bounds__(kThreads) crossing_cast_kernel(
     int32_t* __restrict__ hit_tu,        // [B, R, 2]
     int32_t* __restrict__ hit_dim,       // [B, R]
     float* __restrict__ dist,            // [B, R]
-    int r_total, int h, int w, int nw) {
+    int b_total, int r_total, int h, int w, int nw) {
+  // blockDim = (ray_cols, env_rows); block (x, y) holds envs
+  // [x * env_rows, ...) and rays [y * ray_cols, ...) of each.
   extern __shared__ uint32_t s_words[];
-  const int b = blockIdx.x;
-  for (int q = threadIdx.x; q < nw; q += blockDim.x) {
-    s_words[q] = words[static_cast<size_t>(b) * nw + q];
+  const int b0 = blockIdx.x * blockDim.y;
+  const int n_words = min(static_cast<int>(blockDim.y), b_total - b0) * nw;
+  const uint32_t* src = words + static_cast<size_t>(b0) * nw;
+  const int threads = blockDim.x * blockDim.y;
+  for (int q = threadIdx.y * blockDim.x + threadIdx.x; q < n_words;
+       q += threads) {
+    s_words[q] = src[q];
   }
   __syncthreads();
 
-  const int r = blockIdx.y * kThreads + threadIdx.x;
-  if (r >= r_total) return;
+  const int b = b0 + threadIdx.y;
+  const int r = blockIdx.y * blockDim.x + threadIdx.x;
+  if (b >= b_total || r >= r_total) return;
   const size_t ray = static_cast<size_t>(b) * r_total + r;
-  const RayHit hit = crossing_ray(s_words, pos[2 * b], pos[2 * b + 1],
-                                  dirs[2 * ray], dirs[2 * ray + 1], h, w);
+  const RayHit hit =
+      crossing_ray(s_words + threadIdx.y * nw, pos[2 * b], pos[2 * b + 1],
+                   dirs[2 * ray], dirs[2 * ray + 1], h, w);
   dist[ray] = hit.dist;
   hit_tu[2 * ray] = hit.hit_i;
   hit_tu[2 * ray + 1] = hit.hit_j;
@@ -54,18 +76,24 @@ __global__ void __launch_bounds__(kThreads) crossing_cast_kernel(
 }  // namespace
 
 // Launches the cast on `stream` and returns cudaGetLastError() (0 = ok).
-// All tensors are contiguous and on the current device; b >= 1, r >= 1.
+// All tensors are contiguous and on the current device; b >= 1, r >= 1,
+// nw <= rcw_max_smem_words().
 extern "C" int rcw_crossing_cast(
     const void* words, const void* pos, const void* dirs, void* hit_tu,
     void* hit_dim, void* dist, int b, int r, int h, int w, int nw,
     void* stream) {
-  const dim3 grid(b, (r + kThreads - 1) / kThreads);
-  const size_t smem = static_cast<size_t>(nw) * sizeof(uint32_t);
-  crossing_cast_kernel<<<grid, kThreads, smem,
+  const int ray_cols = min((r + kWarp - 1) / kWarp * kWarp, kThreads);
+  int env_rows = kThreads / ray_cols;
+  while (env_rows > 1 && env_rows * nw > kSmemWords) env_rows /= 2;
+  const dim3 block(ray_cols, env_rows);
+  const dim3 grid((b + env_rows - 1) / env_rows,
+                  (r + ray_cols - 1) / ray_cols);
+  const size_t smem = static_cast<size_t>(env_rows) * nw * sizeof(uint32_t);
+  crossing_cast_kernel<<<grid, block, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const float*>(pos),
       static_cast<const float*>(dirs), static_cast<int32_t*>(hit_tu),
-      static_cast<int32_t*>(hit_dim), static_cast<float*>(dist), r, h, w,
+      static_cast<int32_t*>(hit_dim), static_cast<float*>(dist), b, r, h, w,
       nw);
   return static_cast<int>(cudaGetLastError());
 }
@@ -73,6 +101,4 @@ extern "C" int rcw_crossing_cast(
 // Largest shared-memory request (in 32-bit words) that a launch of any of
 // the library's kernels makes without opting in to more (48 KiB); the
 // wrappers refuse maps whose words exceed it.
-extern "C" int rcw_max_smem_words() {
-  return 48 * 1024 / static_cast<int>(sizeof(uint32_t));
-}
+extern "C" int rcw_max_smem_words() { return kSmemWords; }

@@ -129,8 +129,13 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-_THREADS = 128          # rays per block in every kernel
+_THREADS = 128          # threads per block in every kernel
 _MAX_RAY_CHUNKS = 65535  # grid.y limit
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_cap_words() -> int:
+    return load().rcw_max_smem_words()
 
 
 def kernel_library(device, n_words: int, b: int, r: int, what: str,
@@ -145,11 +150,10 @@ def kernel_library(device, n_words: int, b: int, r: int, what: str,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = load()
-    cap = lib.rcw_max_smem_words()
-    if n_words > cap:
+    if n_words > _smem_cap_words():
         raise ValueError(
             f"{what} needs {n_words} words of shared memory per env, more "
-            f"than the kernel's block holds ({cap})"
+            f"than the kernel's block holds ({_smem_cap_words()})"
         )
     if b < 1 or r < 1 or -(-r // _THREADS) > _MAX_RAY_CHUNKS:
         raise ValueError(f"unsupported batch shape B={b}, R={r}")
