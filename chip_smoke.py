@@ -122,7 +122,6 @@ def wrappers():
 # the map and the clamped tile repeats), "tiny" (random, one component of
 # |d| in TINY, so that t overflows to +inf partway along that axis) and
 # "corners" (integer positions, diagonal rays through tile corners).
-KINDS = ("random", "sliding", "no_border", "tiny", "corners")
 AXES = np.array([[1, 0], [0, 1], [-1, 0], [0, -1]], np.float32)
 _S = np.float32(np.sqrt(0.5))
 DIAGONALS = np.array([[_S, _S], [-_S, _S], [-_S, -_S], [_S, -_S]], np.float32)
@@ -144,7 +143,7 @@ def signed_tiny(rng, shape):
 
 def fuzz_inputs(h, w, b, r, seed, device, kind="random"):
     """Packed random maps (interior walls at density 0.25), positions and
-    rays of ``kind`` (KINDS), from numpy.random.default_rng(seed)."""
+    rays of ``kind`` (the kinds above), from numpy.random.default_rng(seed)."""
     import torch
 
     from raycastworlds_tpu_torch.ops.bitmap import pack_bits_np
@@ -174,7 +173,7 @@ def render_inputs(h, w, b, r, hpu, seed, device, kind="random"):
     of the other tiles, a goal tile on an empty interior tile (obstacles =
     walls | blocks | goal), random interior positions and headings, each
     heading's player direction and mirror-ordered ray fan (R rays, 128
-    headings), and the render constants.  Other ``kind``s (KINDS):
+    headings), and the render constants.  Other ``kind``s:
     "sliding", integer positions, axis headings with exact axis player
     directions, and the first 8 rays of every fan along the heading (an
     exact-zero component); "no_border", no border ring; "tiny", axis
