@@ -47,8 +47,9 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    ``observe_batch`` hands the kernel after a ``reset_batch``: kernel ==
    plain, the device time per launch (torch.profiler's CUDA activity, the
    median of at least 60 launches after a warm-up; traces under
-   ``chiprun_out/smoke_traces/``), the wrapper's host time per call (CUDA
-   events around 20 calls), the plain version's time, the bound (the
+   ``raycastworlds_tpu_torch/_build/traces/``), the wrapper's host time
+   per call (CUDA events around 20 calls), the plain version's time, the
+   bound (the
    larger of the bytes read and written over 3.35 TB/s and the float
    operations this data needs over 67 TFLOP/s) and the share of bound
    (bound / device time).
@@ -77,7 +78,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 STEPS = 64
 PROFILED_LAUNCHES = 60
-TRACE_DIR = os.path.join(ROOT, "chiprun_out", "smoke_traces")
+TRACE_DIR = os.path.join(ROOT, "raycastworlds_tpu_torch", "_build", "traces")
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores in operations/s
 HBM_BYTES_PER_S = 3.35e12
