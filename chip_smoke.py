@@ -49,10 +49,9 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    median of at least 60 launches after a warm-up; traces under
    ``raycastworlds_tpu_torch/_build/traces/``), the wrapper's host time
    per call (CUDA events around 20 calls), the plain version's time, the
-   bound (the
-   larger of the bytes read and written over 3.35 TB/s and the float
-   operations this data needs over 67 TFLOP/s) and the share of bound
-   (bound / device time).
+   bound (the larger of the bytes read and written over 3.35 TB/s and the
+   float operations this data needs over 67 TFLOP/s) and the share of
+   bound (bound / device time).
 
 The line before the last is the kernels' JSON record: each kernel's
 launches summed over the main paths that route through it, its numbers at
