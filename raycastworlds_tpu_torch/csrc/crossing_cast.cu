@@ -20,12 +20,13 @@
 // one env per block, at 64 rays two: no half-empty blocks, and half as many
 // blocks to schedule, at 32768 envs x 64 rays.  The block stages its envs'
 // packed words (4-10 per env at the main paths' maps) in shared memory.
-// (A flat B*R ray grid does the same without idle lanes, but its per-thread
-// divide by R made it slower at every main-path shape; float2/int2 accesses
-// measured no faster than the 4-byte ones kept here.)  It is an ALU and
-// store kernel: no tensor cores, TMA or wgmma.  The divide stays the IEEE
-// __fdiv_rn (built -prec-div=true, -fmad=false), so the cast equals its
-// plain version, the full-loop `cast_rays_crossing_kernel_ref`, bit for bit.
+// (A flat B*R ray grid also leaves no lane idle, but its per-thread divide
+// by R made it slower at 256 and 512 rays and no faster at 64; float2/int2
+// accesses measured no faster than the 4-byte ones kept here.)  It is an
+// ALU and store kernel: no tensor cores, TMA or wgmma.  The divide stays
+// the IEEE __fdiv_rn (built -prec-div=true, -fmad=false), so the cast
+// equals its plain version, the full-loop `cast_rays_crossing_kernel_ref`,
+// bit for bit.
 
 #include <cstdint>
 
