@@ -21,8 +21,12 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    the crossing and DDA casts also at 1 and 80 rays per env and on a
    336x336 map at 2 rays (the crossing cast's block layouts); then each
    kernel's times and bound at the reference-default shape (as in phase 6);
-4. the golden frame of tests/data/golden_frames.npz ("single_room", pinned
-   from the JAX package) reproduced through the crossing kernel;
+4. the golden frames of tests/data/golden_frames.npz ("single_room",
+   "multi_player" and "top_view", pinned from the JAX package) reproduced
+   through the crossing kernel; then the top_u32 observation of
+   SingleRoom (512 rays) and MultiPlayerRoom (the main path's config) at
+   256 envs on the card equal to the same states' on the CPU, with the
+   card's ms per call;
 5. the main paths, reset plus 64 steps of the throughput program, through
    the kernels (launch count = observations made, no other kernel
    launched) and through the plain paths, with identical final states and
@@ -41,8 +45,16 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
      8192 envs, ``fused`` (block and door words) against ``scan``;
      MultiGoalRoom, 64 x 64, 8192 envs, ``pallas`` against ``scan``, and
      ``analytic`` (no kernel) against ``crossing``: identical states,
-     checksums within 1e-6 relative, reset frames 99.9% equal.
-   Each budgeted phase prints how many envs its budget reset.
+     checksums within 1e-6 relative, reset frames 99.9% equal;
+   * MultiPlayerRoom at the JAX bench row ``multi_player_2p_4096``: 2
+     players, sprites, 8x16, 64 x 64, 4096 envs, so 8192 casts per
+     observation in one launch: camera_u32 ``auto`` against ``crossing``,
+     block players under ``pallas`` against ``scan``, and camera_pal8
+     under ``crossing_kernel_fused`` (the crossing cast, never the pal8
+     kernel) against ``crossing``.
+   Each budgeted phase prints how many envs its budget reset.  Then one
+   profile of 5 steps of the MultiPlayerRoom camera_u32 path: wall and
+   device ms per step, the device's busy share and kernels per step.
 6. each main path's kernel at that path's shape, on the inputs its
    ``observe_batch`` hands the kernel after a ``reset_batch``: kernel ==
    plain, the device time per launch (torch.profiler's CUDA activity, the
@@ -480,7 +492,10 @@ def shape_rows(device, paths, launches=None) -> list:
             continue
         g = game(dataclasses.replace(cfg, raycast_backend=backend))
         args, kwargs = observed_inputs(kernel, g, num_envs, device)
-        shape = (f"{label}: {cfg.H}x{cfg.W} B={num_envs} R={cfg.num_rays}"
+        players = getattr(cfg, "num_players", 1)
+        shape = (f"{label}: {cfg.H}x{cfg.W} B={num_envs * players}"
+                 + (f" ({num_envs} envs x {players} players)" if players > 1 else "")
+                 + f" R={cfg.num_rays}"
                  + ("" if kernel.endswith("cast") else f" hpu {cfg.height_camera_view_pu}"))
         row = measure(kernel, shape, args, kwargs)
         if launches is not None:
@@ -555,13 +570,104 @@ def golden_frame(game, device) -> np.ndarray:
     for seed in (1234, 7, 42, 99):
         state = game.reset_batch(rt.rng.PRNGKey(seed, device)[None])
         for a in (2, 0, 3):
-            state = game.step_batch(
-                state, torch.full((1,), a, dtype=torch.int32, device=device)
-            )
+            state = game.step_batch(state, torch.full(
+                (1,) + game.action_shape, a, dtype=torch.int32, device=device))
         frame = game.observe_batch(state)[0].cpu().numpy()
         if len(np.unique(frame)) >= 3:
             return frame
     raise RuntimeError("no structural golden frame found")
+
+
+def golden_phase(device) -> None:
+    """The golden frames "single_room", "multi_player" and "top_view",
+    each through the crossing kernel, equal to tests/data/golden_frames.npz."""
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
+
+    golden = np.load(os.path.join(ROOT, "tests", "data", "golden_frames.npz"))
+    games = {
+        "single_room": rt.SingleRoom(rt.EnvConfig(num_rays=64, height_camera_view_pu=48)),
+        "multi_player": rt.MultiPlayerRoom(rt.MultiPlayerConfig(
+            num_players=2, num_rays=64, height_camera_view_pu=48)),
+        "top_view": rt.SingleRoom(rt.EnvConfig(num_rays=32, pu_per_tu=8, obs_type="top_u32")),
+    }
+    for name, game in games.items():
+        before = rck.cast_rays_crossing_kernel.launches
+        frame = golden_frame(game, device)
+        check(rck.cast_rays_crossing_kernel.launches > before,
+              f"golden frame {name} did not go through the kernel")
+        check(frame.dtype == golden[name].dtype and np.array_equal(frame, golden[name]),
+              f"golden frame {name} differs from tests/data/golden_frames.npz")
+        print(f"golden frame {name} {frame.shape} matches through the kernel")
+
+
+def top_view_phase(device, num_envs=256) -> None:
+    """top_u32 observations of SingleRoom (the reference default's 512 rays)
+    and MultiPlayerRoom (the main path's config) after a reset and 3 random
+    steps on the card: equal to the same states' on the CPU; prints the
+    card's ms per call (CUDA events, 5 calls)."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+
+    for label, game in (
+        ("SingleRoom", rt.SingleRoom(rt.EnvConfig(obs_type="top_u32"))),
+        ("MultiPlayerRoom", rt.MultiPlayerRoom(multi_player_cfg(obs_type="top_u32"))),
+    ):
+        state = game.reset_batch(rt.rng.split(rt.rng.PRNGKey(SEED, device), num_envs))
+        for q in range(3):
+            a = rt.rng.randint(rt.rng.PRNGKey(SEED + q, device),
+                               (num_envs,) + game.action_shape, 0, 4)
+            state = game.step_batch(state, a)
+        got = game.observe_batch(state)
+        want = game.observe_batch(state.to("cpu"))
+        check(got.shape == (num_envs,) + game.cfg.obs_shape and got.dtype == torch.uint32,
+              f"top view {label}: obs {tuple(got.shape)} {got.dtype}")
+        check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+              f"top view {label}: the card's top_u32 differs from the CPU's")
+        ms = time_ms(lambda: game.observe_batch(state), 5)
+        print(f"top view {label} {tuple(got.shape)} at {num_envs} envs: card == CPU; "
+              f"{ms:.2f} ms per call on the card")
+
+
+def profile_step(label, game, cfg, num_envs, device, steps=5) -> dict:
+    """Wall ms per step (host clock around ``steps`` synchronized steps
+    after 3 warm-up steps), device ms per step (the sum of the CUDA
+    kernels' durations in torch.profiler's trace of the same steps), the
+    device's busy share (device / wall) and kernels per step, of
+    ``Env(game(cfg))`` with random actions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import raycastworlds_tpu_torch as rt
+
+    env = rt.Env(game(cfg), num_envs=num_envs, device=device)
+    state, _ = env.reset(rt.rng.PRNGKey(SEED))
+    acts = rt.rng.randint(rt.rng.PRNGKey(SEED + 2, device),
+                          (steps + 3, num_envs) + env.game.action_shape, 0, 4)
+    for a in acts[:3]:
+        state = env.step(state, a).state
+    torch.cuda.synchronize()
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "step_" + label.replace(" ", "_") + ".json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for a in acts[3:]:
+            state = env.step(state, a).state
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"]
+    dev = sum(e["dur"] for e in kernels) / 1e3 / steps
+    row = dict(path=label, envs=num_envs, wall_ms=wall, device_ms=dev, busy=dev / wall,
+               kernels_per_step=len(kernels) / steps)
+    check(dev > 0, f"profile {label}: the trace holds no kernel")
+    print(f"profile {label}, {num_envs} envs, {steps} steps under torch.profiler: wall "
+          f"{wall:.2f} ms/step, device {dev:.2f} ms/step, busy {row['busy']:.1%}, "
+          f"{row['kernels_per_step']:.1f} kernels/step")
+    return row
 
 
 def count_budgeted_resets(env):
@@ -678,6 +784,14 @@ def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, 
     return launches
 
 
+def multi_player_cfg(**kw):
+    """The MultiPlayerRoom main path's config, the JAX bench row
+    multi_player_2p_4096 (2 players, sprites, 64 rays x 64 px), with ``kw``."""
+    import raycastworlds_tpu_torch as rt
+
+    return rt.MultiPlayerConfig(num_rays=64, height_camera_view_pu=64, **kw)
+
+
 def main_paths():
     """(label, family, config, envs, kernel backend, kernel, plain backends,
     options of main_path_phase) of every main path."""
@@ -714,6 +828,13 @@ def main_paths():
          "pallas", "dda_cast", ["scan"], {}),
         ("multi_goal analytic", rt.MultiGoalRoom, rt.MultiGoalConfig(**small), 8192,
          "analytic", None, ["crossing"], dict(turns=False)),
+        ("multi_player camera_u32", rt.MultiPlayerRoom, multi_player_cfg(), 4096, "auto",
+         "crossing_cast", ["crossing"], dict(turns=False)),
+        ("multi_player block pallas", rt.MultiPlayerRoom,
+         multi_player_cfg(player_render="block"), 4096, "pallas", "dda_cast", ["scan"], {}),
+        ("multi_player camera_pal8", rt.MultiPlayerRoom,
+         multi_player_cfg(obs_type="camera_pal8"), 4096, "crossing_kernel_fused",
+         "crossing_cast", ["crossing"], {}),
     ]
 
 
@@ -728,7 +849,6 @@ def main() -> None:
     import raycastworlds_tpu_torch as rt
     from raycastworlds_tpu_torch import cuda_build
     from raycastworlds_tpu_torch.ops import raycast
-    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
     device = torch.device("cuda", 0)
 
@@ -770,16 +890,9 @@ def main() -> None:
     print(f"plain crossing cast at B=4096 R=512 8x16: {plain_crossing:.4f} ms")
     del words, pos, dirs
 
-    # 4. golden frame through the crossing kernel
-    golden = np.load(os.path.join(ROOT, "tests", "data", "golden_frames.npz"))
-    before = rck.cast_rays_crossing_kernel.launches
-    frame = golden_frame(
-        rt.SingleRoom(rt.EnvConfig(num_rays=64, height_camera_view_pu=48)), device)
-    check(rck.cast_rays_crossing_kernel.launches > before,
-          "golden frame did not go through the kernel")
-    check(frame.dtype == np.uint32 and np.array_equal(frame, golden["single_room"]),
-          "golden frame differs from tests/data/golden_frames.npz")
-    print(f"golden frame single_room {frame.shape} matches through the kernel")
+    # 4. golden frames through the crossing kernel; top views card == CPU
+    golden_phase(device)
+    top_view_phase(device)
 
     # 5. the main paths
     check(rt.EnvConfig().resolved_raycast_backend(device.type) == "crossing_kernel",
@@ -793,6 +906,9 @@ def main() -> None:
             launches[name] += n
         if kernel is not None:
             per_step[label] = run[kernel] / (STEPS + 1)
+
+    profile_step("multi_player camera_u32", rt.MultiPlayerRoom, multi_player_cfg(), 4096,
+                 device)
 
     # 6. each kernel at every main-path shape, on the path's own inputs
     rows = shape_rows(device, paths, per_step)

@@ -9,10 +9,12 @@ imports ``torch`` and numpy only.
 * ``EnvState``  -- dataclass of batched ``[B, ...]`` tensors
 * ``SingleRoom`` -- the walled room with one goal
 * ``RandomRoom``, ``Maze``, ``MultiGoalRoom``, ``DynamicRoom``,
-  ``LockedRoom`` -- the other world families, each with its config class
+  ``LockedRoom``, ``MultiPlayerRoom`` -- the other world families, each
+  with its config class
 * ``Env``       -- batched auto-resetting environment on one device
 * ``rng``       -- threefry-2x32, bit-exact with ``jax.random``
-* ``ops``       -- raycasts (plain and CUDA kernels), collision, render
+* ``ops``       -- raycasts (plain and CUDA kernels), collision, render,
+  top view
 """
 
 from .config import (
@@ -29,6 +31,7 @@ from .models.dynamic_room import DynamicRoom, DynamicRoomConfig
 from .models.locked_room import LockedRoom, LockedRoomConfig
 from .models.maze import Maze, MazeConfig
 from .models.multi_goal import MultiGoalConfig, MultiGoalRoom
+from .models.multi_player import MultiPlayerConfig, MultiPlayerRoom
 from .models.random_room import RandomRoom, RandomRoomConfig
 from .models.single_room import SingleRoom
 from .state import EnvState
@@ -53,6 +56,8 @@ __all__ = [
     "DynamicRoomConfig",
     "LockedRoom",
     "LockedRoomConfig",
+    "MultiPlayerRoom",
+    "MultiPlayerConfig",
     "colors",
     "rng",
     "NUM_ACTIONS",

@@ -128,8 +128,10 @@ class Env:
         if frozen is not None:
             # envs awaiting a budgeted reset discard their step
             stepped = select(frozen, state, stepped)
+            # reward may carry a trailing player axis (MultiPlayerRoom)
+            fz = frozen.reshape(frozen.shape + (1,) * (stepped.reward.dim() - 1))
             stepped = stepped.replace(
-                reward=torch.where(frozen, 0.0, stepped.reward),
+                reward=torch.where(fz, 0.0, stepped.reward),
                 done=stepped.done & ~frozen,
             )
         terminated = stepped.done
@@ -185,3 +187,11 @@ class Env:
     def sample_action(self, key: torch.Tensor) -> torch.Tensor:
         shape = (self.num_envs,) + self.game.action_shape
         return rng.randint(key.to(self.device), shape, 0, self.game.num_actions)
+
+    def top_view(self, state: EnvState) -> torch.Tensor:
+        """Batched uint32 top views (the debug rendering)."""
+        return self.game.top_view_batch(state)
+
+    def camera_view(self, state: EnvState) -> torch.Tensor:
+        """Batched uint32 camera views whatever the ``obs_type``."""
+        return self.game.camera_view_batch(state)

@@ -16,9 +16,9 @@ import numpy as np
 import torch
 
 from ..config import MOVE_FORWARD, TURN_LEFT, TURN_RIGHT, EnvConfig
-from ..ops import collision, lut, raycast, raycast_analytic, render
+from ..ops import bitmap, collision, lut, raycast, raycast_analytic, render
 from ..ops import raycast_crossing_kernel as rck
-from ..ops import render_fused
+from ..ops import render_fused, topview
 from ..state import EnvState
 
 
@@ -207,6 +207,14 @@ class Game:
 
     def observe_batch(self, state: EnvState) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.obs_type in ("top_u32", "top_rgb"):
+            img = self.top_view_batch(state)
+            return render.u32_to_rgb(img) if cfg.obs_type == "top_rgb" else img
+        if cfg.obs_type == "tile_grid":  # no pixel of it reads the cast
+            return render.render_observation(
+                cfg, state.wall_words, state.goal_tu, None, None,
+                block_words=self._block_words_batch(state), goal_words=state.goal_words,
+            )
         if self._use_kernel_pal8(state):
             _, obstacle_words = self._packed_maps_batch(state)
             return rck.cast_render_pal8_kernel(
@@ -234,3 +242,27 @@ class Game:
             cfg, state.wall_words, state.goal_tu, self._player_dir(state), hits,
             block_words=self._block_words_batch(state),
         )
+
+    def _maps(self, *words):
+        """Dense bool[B, H, W] maps of packed words, None for None."""
+        shape = (self.cfg.H, self.cfg.W)
+        return [None if w is None else bitmap.unpack_bits(w, shape) for w in words]
+
+    def top_view_batch(self, state: EnvState) -> torch.Tensor:
+        """uint32[B, H*ppt, W*ppt] top views (:func:`topview.render_top_view`):
+        goal words and block words as the world has them."""
+        cfg = self.cfg
+        walls, goals, blocks = self._maps(
+            state.wall_words, state.goal_words, self._block_words_batch(state))
+        return topview.render_top_view(
+            cfg, walls, state.goal_tu, state.pos_wu, cfg.player_radius_pu,
+            self.cast_batch(state), goal_map=goals, block_map=blocks,
+        )
+
+    def camera_view_batch(self, state: EnvState) -> torch.Tensor:
+        """uint32[B, H_pu, R] camera views whatever the ``obs_type``."""
+        img = render.render_camera_u32(
+            self.cfg, state.wall_words, self._player_dir(state), self.cast_batch(state),
+            block_words=self._block_words_batch(state),
+        )
+        return img.view(torch.uint32)

@@ -25,8 +25,6 @@ from .raycast import RayHits
 
 _NOT_PORTED = {
     "textures": "ROADMAP Queue 1 item 15",
-    "tile_grid": "ROADMAP Queue 1 item 17",
-    "top view": "ROADMAP Queue 1 item 17",
 }
 
 
@@ -208,6 +206,88 @@ def render_camera_pal8(
     )
 
 
+def sprite_overlay(cfg: EnvConfig, img: torch.Tensor, player_dir_wu, hits: RayHits,
+                   t_sprite: torch.Tensor, color: int, sprite_height_wu: float
+                   ) -> torch.Tensor:
+    """Floor-standing billboard sprite columns over camera images
+    ``img`` [B, H_pu, R] (int32 u32 colours or uint8 palette indices).
+
+    ``t_sprite`` f32[B, R] is the distance along each (cast-order) ray to
+    the nearest sprite, +inf where it misses.  A sprite shows where it is
+    closer than the wall hit, as a column whose bottom is where a wall
+    column at its fisheye-projected distance ends (the pad rule of
+    :func:`column_pads`) and whose height is ``sprite_height_wu`` of that
+    wall height, in ``color`` (of the image's dtype)."""
+    hpu = cfg.height_camera_view_pu
+    num, denom = render_constants(cfg)
+    visible = t_sprite < hits.dist_wu
+    proj = projected_depth(player_dir_wu, hits._replace(dist_wu=t_sprite))
+    h_line = _const(np.float32(num), proj) / (_const(np.float32(denom), proj) * proj)
+    h_line = torch.where(visible & torch.isfinite(h_line), h_line, 0.0)
+    h_pu = torch.floor(torch.clamp(h_line, max=float(hpu))).to(torch.int32)
+    pad = torch.where(h_pu >= hpu - 1, 0, (hpu - h_pu) // 2)
+    bottom = hpu - pad
+    sh = _const(np.float32(sprite_height_wu), h_line)
+    hs = torch.floor(torch.clamp(sh * h_line, max=float(hpu))).to(torch.int32)
+    top = torch.clamp(bottom - hs, min=0)
+    # Mirror the per-ray vectors before the [H_pu, R] broadcast.
+    visible, top, bottom = (torch.flip(v, dims=(1,))[:, None, :]
+                            for v in (visible, top, bottom))
+    row = torch.arange(hpu, dtype=torch.int32, device=img.device)[None, :, None]
+    mask = visible & (row >= top) & (row < bottom)
+    return torch.where(mask, _const(color, img).to(img.dtype), img)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of float32 ``x``.  torch's CPU
+    float32 sqrt is not (its vectorized kernel is an ulp off on about 0.5%
+    of inputs); the float64 root of a float32 value, rounded to float32, is,
+    even where that float64 root is an ulp off."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def ray_circle_t(pos_wu: torch.Tensor, ray_dirs: torch.Tensor, centers: torch.Tensor,
+                 center_mask: torch.Tensor, radius_sq) -> torch.Tensor:
+    """Nearest positive ray-circle intersection distance f32[B, R], +inf
+    where every circle is missed.  ``pos_wu`` f32[B, 2], ``ray_dirs``
+    f32[B, R, 2], ``centers`` f32[B, K, 2] with bool[B, K] ``center_mask``
+    disabling rows, ``radius_sq`` a float32 value.  The quadratic
+    b = d.(c-p), disc = b^2 - |c-p|^2 + r^2, near root t = b - sqrt(disc),
+    every product and sum rounded on its own."""
+    dx = ray_dirs[..., 0, None]                                 # [B, R, 1]
+    dy = ray_dirs[..., 1, None]
+    ox = (centers[..., 0] - pos_wu[:, 0:1])[:, None, :]         # [B, 1, K]
+    oy = (centers[..., 1] - pos_wu[:, 1:2])[:, None, :]
+    b = dx * ox + dy * oy                                       # [B, R, K]
+    c2 = ox * ox + oy * oy
+    disc = b * b - c2 + _const(np.float32(radius_sq), b)
+    t = b - sqrt_f32(torch.clamp(disc, min=0.0))
+    valid = center_mask[:, None, :] & (disc >= 0) & (t > 0)
+    return torch.where(valid, t, float("inf")).amin(dim=-1)
+
+
+def tile_grid(cfg: EnvConfig, wall_words, goal_tu, block_words=None,
+              goal_words=None) -> torch.Tensor:
+    """int32[B, H, W] tile map: walls 1, then blocks 3, then the goal words
+    (or else the goal tile) 2, each over the ones before."""
+    shape = (cfg.H, cfg.W)
+    grid = bitmap.unpack_bits(wall_words, shape).to(torch.int32)
+    if block_words is not None:
+        grid = torch.where(bitmap.unpack_bits(block_words, shape), 3, grid)
+    goal = (goal_tile_map(goal_tu, shape) if goal_words is None
+            else bitmap.unpack_bits(goal_words, shape))
+    return torch.where(goal, 2, grid).to(torch.int32)
+
+
+def goal_tile_map(goal_tu: torch.Tensor, shape) -> torch.Tensor:
+    """bool[B, H, W], true at each env's goal tile ``goal_tu`` (int32[B, 2]):
+    an index compare, no scatter."""
+    h, w = shape
+    ii = torch.arange(h, device=goal_tu.device)[None, :, None]
+    jj = torch.arange(w, device=goal_tu.device)[None, None, :]
+    return (ii == goal_tu[:, 0, None, None]) & (jj == goal_tu[:, 1, None, None])
+
+
 def pal8_to_u32(img: torch.Tensor, palette=None) -> torch.Tensor:
     """Decode palette indices to 0x00RRGGBB, returned as a uint32 view."""
     pal = np.asarray(colors.PALETTE_NP if palette is None else palette, np.uint32)
@@ -217,17 +297,20 @@ def pal8_to_u32(img: torch.Tensor, palette=None) -> torch.Tensor:
 
 def render_observation(
     cfg: EnvConfig, wall_words, goal_tu, player_dir_wu, hits: RayHits,
-    block_words=None,
+    block_words=None, goal_words=None,
 ) -> torch.Tensor:
     """Dispatch on ``cfg.obs_type``; the result has the observation space's
     dtype (``camera_u32`` as a uint32 view).  ``block_words`` (packed block
-    tiles, or None) render in the block shades."""
+    tiles, or None) render in the block shades; ``goal_words`` (packed goal
+    tiles, or None for the single ``goal_tu``) mark the tile grid's goals.
+    ``tile_grid`` reads no cast: ``player_dir_wu`` and ``hits`` may be None."""
+    if cfg.obs_type == "tile_grid":
+        return tile_grid(cfg, wall_words, goal_tu, block_words, goal_words)
+    if cfg.obs_type in ("top_u32", "top_rgb"):
+        raise ValueError("top views are drawn by ops/topview.py (Game.top_view_batch), "
+                         "not from camera hits")
     if cfg.obs_type == "depth":
         return torch.flip(projected_depth(player_dir_wu, hits), dims=(1,))
-    if cfg.obs_type == "tile_grid":
-        raise _not_ported("tile_grid")
-    if cfg.obs_type in ("top_u32", "top_rgb"):
-        raise _not_ported("top view")
     if cfg.obs_type == "camera_pal8":
         return render_camera_pal8(cfg, wall_words, player_dir_wu, hits, block_words)
     img = render_camera_u32(cfg, wall_words, player_dir_wu, hits, block_words)

@@ -15,7 +15,11 @@ dimension written out as the leading ``[B]`` axis:
   pending_reset   bool[B]       episode ended, reset still owed (only under
                                 ``Env(reset_budget=K)``)
 
-and the optional leaves of the families that use them (None elsewhere):
+MultiPlayerRoom adds a player axis to the pose and the rewards: ``pos_wu``
+float32[B, P, 2], ``dir_au`` int32[B, P], ``reward`` and ``episode_return``
+float32[B, P] (``done`` stays bool[B]); :func:`select` broadcasts by rank.
+
+And the optional leaves of the families that use them (None elsewhere):
 
   goal_words      int32[B, nw]  packed goal mask (MultiGoalRoom)
   goal_tiles      int32[B, K, 2] its goal tiles, collected ones at (-1, -1)

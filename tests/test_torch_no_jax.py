@@ -13,6 +13,8 @@ import raycastworlds_tpu_torch.ops.raycast_analytic
 import raycastworlds_tpu_torch.ops.raycast_crossing_kernel
 import raycastworlds_tpu_torch.ops.raycast_pallas
 import raycastworlds_tpu_torch.ops.render_fused
+import raycastworlds_tpu_torch.ops.topview
+import raycastworlds_tpu_torch.models.multi_player
 import raycastworlds_tpu_torch.parallel.rollout
 for backend in ("auto", "fused"):
     cfg = rt.EnvConfig(num_rays=8, height_camera_view_pu=8, raycast_backend=backend)
@@ -25,6 +27,12 @@ for game in (rt.RandomRoom(rt.RandomRoomConfig(**small)), rt.Maze(rt.MazeConfig(
              rt.DynamicRoom(rt.DynamicRoomConfig(**small)),
              rt.LockedRoom(rt.LockedRoomConfig(**small))):
     env = rt.Env(game, num_envs=2, reset_budget=1, device="cpu")
+    state, obs = env.reset(rt.rng.PRNGKey(0))
+    env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
+for obs_type in ("camera_u32", "top_u32"):
+    cfg = rt.MultiPlayerConfig(num_rays=8, height_camera_view_pu=8, pu_per_tu=4,
+                               obs_type=obs_type)
+    env = rt.Env(rt.MultiPlayerRoom(cfg), num_envs=2, device="cpu")
     state, obs = env.reset(rt.rng.PRNGKey(0))
     env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
 bad = sorted(m for m in sys.modules
