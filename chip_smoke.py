@@ -21,12 +21,15 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    the crossing and DDA casts also at 1 and 80 rays per env and on a
    336x336 map at 2 rays (the crossing cast's block layouts); then each
    kernel's times and bound at the reference-default shape (as in phase 6);
-4. the golden frames of tests/data/golden_frames.npz ("single_room",
-   "multi_player" and "top_view", pinned from the JAX package) reproduced
-   through the crossing kernel; then the top_u32 observation of
-   SingleRoom (512 rays) and MultiPlayerRoom (the main path's config) at
-   256 envs on the card equal to the same states' on the CPU, with the
-   card's ms per call;
+4. the golden frames of tests/data/golden_frames.npz ("single_room", its
+   checker, brick and xor textured twins, "multi_player" and "top_view",
+   pinned from the JAX package) reproduced through the crossing kernel;
+   then the top_u32 observation of SingleRoom (512 rays) and
+   MultiPlayerRoom (the main path's config) at 256 envs on the card equal
+   to the same states' on the CPU, with the card's ms per call; then the
+   textured camera_pal8 frames of the reference default at 4096 envs
+   decoding through the extended palette to the camera_u32 frames of the
+   same states (checker, brick, xor);
 5. the main paths, reset plus 64 steps of the throughput program, through
    the kernels (launch count = observations made, no other kernel
    launched) and through the plain paths, with identical final states and
@@ -51,10 +54,24 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
      observation in one launch: camera_u32 ``auto`` against ``crossing``,
      block players under ``pallas`` against ``scan``, and camera_pal8
      under ``crossing_kernel_fused`` (the crossing cast, never the pal8
-     kernel) against ``crossing``.
-   Each budgeted phase prints how many envs its budget reset.  Then one
-   profile of 5 steps of the MultiPlayerRoom camera_u32 path: wall and
-   device ms per step, the device's busy share and kernels per step.
+     kernel) against ``crossing``;
+   * textured SingleRoom at the reference default (4096 envs, 512 rays x
+     256 px): checker camera_u32 ``auto`` (the crossing cast; its peak
+     device memory printed) against ``crossing``, brick camera_u32
+     ``pallas`` (the DDA cast) against ``scan``, and xor camera_pal8
+     ``crossing_kernel_fused`` (the crossing cast, never the pal8 kernel:
+     textures render after the cast) against ``crossing``.
+   Each budgeted phase prints how many envs its budget reset.  Then the
+   configs no kernel takes: SingleRoom at the reference default with
+   continuous headings (turn 0.7 angle units) and in float64, 4096 envs
+   under ``auto`` launching no kernel, and at 64 envs over 16 steps the
+   card's states and frames equal to the CPU's; and a 640x640 map, whose
+   12,800 packed words pass the kernels' shared-memory cap (the Python
+   ``KERNEL_MAX_WORDS``, checked equal to the library's), resolving
+   ``auto`` to the plain crossing cast and stepping on the card.  Then a
+   profile of 5 steps of the MultiPlayerRoom camera_u32 path and of the
+   checker camera_u32 path: wall and device ms per step, the device's busy
+   share and kernels per step.
 6. each main path's kernel at that path's shape, on the inputs its
    ``observe_batch`` hands the kernel after a ``reset_batch``: kernel ==
    plain, the device time per launch (torch.profiler's CUDA activity, the
@@ -579,14 +596,19 @@ def golden_frame(game, device) -> np.ndarray:
 
 
 def golden_phase(device) -> None:
-    """The golden frames "single_room", "multi_player" and "top_view",
-    each through the crossing kernel, equal to tests/data/golden_frames.npz."""
+    """The golden frames "single_room", its checker, brick and xor textured
+    twins, "multi_player" and "top_view", each through the crossing kernel,
+    equal to tests/data/golden_frames.npz (the port's CPU frames equal them
+    too, tests/test_torch_golden.py)."""
     import raycastworlds_tpu_torch as rt
     from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
     golden = np.load(os.path.join(ROOT, "tests", "data", "golden_frames.npz"))
     games = {
         "single_room": rt.SingleRoom(rt.EnvConfig(num_rays=64, height_camera_view_pu=48)),
+        **{f"single_room_{tex}": rt.SingleRoom(rt.EnvConfig(
+            num_rays=64, height_camera_view_pu=48, wall_texture=tex, texture_cells=8))
+           for tex in ("checker", "brick", "xor")},
         "multi_player": rt.MultiPlayerRoom(rt.MultiPlayerConfig(
             num_players=2, num_rays=64, height_camera_view_pu=48)),
         "top_view": rt.SingleRoom(rt.EnvConfig(num_rays=32, pu_per_tu=8, obs_type="top_u32")),
@@ -628,6 +650,35 @@ def top_view_phase(device, num_envs=256) -> None:
         ms = time_ms(lambda: game.observe_batch(state), 5)
         print(f"top view {label} {tuple(got.shape)} at {num_envs} envs: card == CPU; "
               f"{ms:.2f} ms per call on the card")
+
+
+def pal8_decode_phase(device, num_envs=4096) -> None:
+    """Textured camera_pal8 frames (the reference default at ``num_envs``
+    envs after a reset and 3 random steps, cast by the crossing kernel)
+    decoded through ``cfg.palette_np`` equal the camera_u32 frames of the
+    same states, for the checker, brick and xor textures."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.ops import render
+
+    for tex in ("checker", "brick", "xor"):
+        cfg = rt.EnvConfig(wall_texture=tex, obs_type="camera_pal8",
+                           raycast_backend="crossing_kernel_fused")
+        game = rt.SingleRoom(cfg)
+        state = game.reset_batch(rt.rng.split(rt.rng.PRNGKey(SEED, device), num_envs))
+        for q in range(3):
+            state = game.step_batch(state, rt.rng.randint(
+                rt.rng.PRNGKey(SEED + q, device), (num_envs,), 0, 4))
+        pal8 = game.observe_batch(state)
+        u32 = game.camera_view_batch(state)
+        decoded = render.pal8_to_u32(pal8, cfg.palette_np)
+        check(torch.equal(decoded.view(torch.int32), u32.view(torch.int32)),
+              f"{tex}: decoded pal8 frames differ from the camera_u32 frames")
+        print(f"textured pal8 {tex} {tuple(pal8.shape)}: decodes through its "
+              f"{len(cfg.palette_np)}-entry palette to the camera_u32 frames of the same "
+              f"states ({int(pal8.max())} the largest index)")
+        del pal8, u32, decoded
 
 
 def profile_step(label, game, cfg, num_envs, device, steps=5) -> dict:
@@ -720,7 +771,7 @@ def same_state(a, b) -> bool:
 
 
 def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, plains,
-                    turns=True, reset_budget=0) -> dict:
+                    turns=True, reset_budget=0, memory=False) -> dict:
     """The kernel path against each plain path on one card: kernel, the
     plains, the plains again in reverse and the kernel again (``turns``),
     or kernel then plains.  Every count is set to 0 just before the first
@@ -730,19 +781,25 @@ def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, 
     checksum; for ``kernel`` None (the analytic cast, whose distances are
     not bit-exact with the crossing's) the checksums must agree to 1e-6
     relative and the reset frames on 99.9% of their values.  A budgeted
-    phase must reset envs through its budget.  Returns the launches of the
-    first run, by kernel."""
+    phase must reset envs through its budget.  ``memory``: print the peak
+    device memory of the kernel run.  Returns the launches of the first
+    run, by kernel."""
     import dataclasses
 
     import torch
 
     kcfg = dataclasses.replace(cfg, raycast_backend=kernel_backend)
     counters = wrappers()
+    if memory:
+        torch.cuda.reset_peak_memory_stats(device)
     for fn in counters.values():
         fn.launches = 0
     k_state, k_sum, obs, k_s, budget = run_main_path(
         game, kcfg, num_envs, STEPS, device, reset_budget)
     launches = {name: fn.launches for name, fn in counters.items()}
+    if memory:
+        print(f"main path {label}: peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
     want = {name: (STEPS + 1 if name == kernel else 0) for name in counters}
     check(launches == want,
           f"{label}: kernel launches {launches} for {STEPS + 1} observations, "
@@ -782,6 +839,74 @@ def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, 
     print(f"main path {label} env-steps/s in run order: "
           + ", ".join(f"{b} {x:.1f}" for b, x in rates))
     return launches
+
+
+def plain_path_phase(label, cfg, device, num_envs=4096, small=64, steps=16) -> None:
+    """A config that no kernel takes: SingleRoom ``cfg`` at ``num_envs``
+    envs, reset plus STEPS steps of the throughput program, launches no
+    kernel (every count set to 0 just before and read just after); then at
+    ``small`` envs over ``steps`` random steps the card's states and frames
+    equal the CPU's, exactly."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+
+    counters = wrappers()
+    for fn in counters.values():
+        fn.launches = 0
+    state, checksum, obs, seconds, _ = run_main_path(rt.SingleRoom, cfg, num_envs, STEPS,
+                                                     device)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(not any(launches.values()), f"{label}: kernels launched {launches}")
+    check(tuple(obs.shape) == (num_envs,) + cfg.obs_shape and math.isfinite(checksum),
+          f"{label}: obs {tuple(obs.shape)}, checksum {checksum}")
+    envs = [rt.Env(rt.SingleRoom(cfg), num_envs=small, device=d) for d in (device, "cpu")]
+    runs = [e.reset(rt.rng.PRNGKey(SEED)) for e in envs]
+    as_i32 = lambda x: x.view(torch.int32) if x.dtype == torch.uint32 else x  # noqa: E731
+    for q in range(steps + 1):
+        (gs, go), (cs, co) = runs
+        check(same_state(gs.to("cpu"), cs) and torch.equal(as_i32(go).cpu(), as_i32(co)),
+              f"{label}: the card's state or frame differs from the CPU's at step {q}")
+        if q < steps:
+            a = rt.rng.randint(rt.rng.PRNGKey(SEED + q), (small,), 0, 4)
+            runs = [(r.state, r.obs) for r in (e.step(s, a) for e, (s, _) in zip(envs, runs))]
+    print(f"plain path {label}: {num_envs} envs x {STEPS} steps, obs {tuple(obs.shape)} "
+          f"{obs.dtype}, pos {state.pos_wu.dtype}, heading {state.dir_au.dtype}, no kernel "
+          f"launched, checksum {checksum!r}, {num_envs * STEPS / seconds:.1f} env-steps/s; "
+          f"card == CPU at {small} envs over {steps} steps")
+
+
+def large_map_phase(device, num_envs=64, steps=4) -> None:
+    """``auto`` keeps a map whose packed words exceed the kernel's shared
+    memory off the kernel: the Python cap equals the built library's, and a
+    640x640 SingleRoom (12,800 words) resolves to the plain crossing cast
+    and steps on the card without a launch."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch import config, cuda_build
+
+    cap = cuda_build.load().rcw_max_smem_words()
+    check(config.KERNEL_MAX_WORDS == cap,
+          f"KERNEL_MAX_WORDS {config.KERNEL_MAX_WORDS} != rcw_max_smem_words() {cap}")
+    cfg = rt.EnvConfig(height_tile_map_tu=640, width_tile_map_tu=640, num_rays=64,
+                       height_camera_view_pu=64)
+    check(cfg.resolved_raycast_backend(device.type) == "crossing",
+          "auto takes a kernel for a 640x640 map")
+    counters = wrappers()
+    for fn in counters.values():
+        fn.launches = 0
+    env = rt.Env(rt.SingleRoom(cfg), num_envs=num_envs, device=device)
+    state, obs = env.reset(rt.rng.PRNGKey(SEED))
+    for q in range(steps):
+        res = env.step(state, env.sample_action(rt.rng.PRNGKey(SEED + q)))
+        state, obs = res.state, res.obs
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(not any(launches.values()), f"large map: kernels launched {launches}")
+    check(tuple(obs.shape) == (num_envs, 64, 64), f"large map: obs {tuple(obs.shape)}")
+    print(f"large map 640x640 ({-(-640 * 640 // 32)} words > cap {cap}): auto -> crossing, "
+          f"{num_envs} envs x {steps} steps on the card, no kernel launched")
 
 
 def multi_player_cfg(**kw):
@@ -835,6 +960,13 @@ def main_paths():
         ("multi_player camera_pal8", rt.MultiPlayerRoom,
          multi_player_cfg(obs_type="camera_pal8"), 4096, "crossing_kernel_fused",
          "crossing_cast", ["crossing"], {}),
+        ("checker camera_u32", rt.SingleRoom, rt.EnvConfig(wall_texture="checker"), 4096,
+         "auto", "crossing_cast", ["crossing"], dict(turns=False, memory=True)),
+        ("brick camera_u32", rt.SingleRoom, rt.EnvConfig(wall_texture="brick"), 4096,
+         "pallas", "dda_cast", ["scan"], dict(turns=False)),
+        ("xor camera_pal8", rt.SingleRoom,
+         rt.EnvConfig(wall_texture="xor", texture_cells=8, obs_type="camera_pal8"), 4096,
+         "crossing_kernel_fused", "crossing_cast", ["crossing"], dict(turns=False)),
     ]
 
 
@@ -893,6 +1025,7 @@ def main() -> None:
     # 4. golden frames through the crossing kernel; top views card == CPU
     golden_phase(device)
     top_view_phase(device)
+    pal8_decode_phase(device)
 
     # 5. the main paths
     check(rt.EnvConfig().resolved_raycast_backend(device.type) == "crossing_kernel",
@@ -907,8 +1040,15 @@ def main() -> None:
         if kernel is not None:
             per_step[label] = run[kernel] / (STEPS + 1)
 
+    plain_path_phase("continuous heading camera_u32",
+                     rt.EnvConfig(continuous_heading=True, turn_increment_au=0.7), device)
+    plain_path_phase("float64 camera_u32", rt.EnvConfig(dtype="float64"), device)
+    large_map_phase(device)
+
     profile_step("multi_player camera_u32", rt.MultiPlayerRoom, multi_player_cfg(), 4096,
                  device)
+    profile_step("checker camera_u32", rt.SingleRoom, rt.EnvConfig(wall_texture="checker"),
+                 4096, device)
 
     # 6. each kernel at every main-path shape, on the path's own inputs
     rows = shape_rows(device, paths, per_step)

@@ -63,8 +63,54 @@ TEX_SLABS = (
 MAX_TEX_FACTORS = (256 - PAL_TEX_BASE) // len(TEX_SLABS)  # 40
 
 
+def texture_factors(wall_texture: str, texture_cells: int) -> np.ndarray:
+    """float32[F] brightness factors of a texture, in the factor-index order
+    the renderers compute per pixel: checker {1, 0.55}, brick {1, 0.45},
+    xor ``0.4 + 0.6 * k / (t - 1)`` for k in [0, t), each product and sum
+    rounded to float32 on its own, as ``ops/render.py`` computes them."""
+    if wall_texture == "checker":
+        return np.array([1.0, 0.55], np.float32)
+    if wall_texture == "brick":
+        return np.array([1.0, 0.45], np.float32)
+    if wall_texture == "xor":
+        t = texture_cells
+        g = np.arange(t, dtype=np.float32) / np.float32(max(t - 1, 1))
+        return (np.float32(0.4) + np.float32(0.6) * g).astype(np.float32)
+    raise ValueError(f"no texture factors for wall_texture={wall_texture!r}")
+
+
+def build_texture_palette(wall_texture: str, texture_cells: int) -> np.ndarray:
+    """uint32[12 + 6*F] palette of a textured config: ``PALETTE``, then each
+    ``TEX_SLABS`` colour under each factor (entry ``12 + slot*F + factor``),
+    every channel multiplied by the float32 factor and truncated, as the u32
+    renderer does, so decoding a textured pal8 frame gives its u32 frame."""
+    fac = texture_factors(wall_texture, texture_cells)
+    if len(fac) > MAX_TEX_FACTORS:
+        raise ValueError(
+            f"{wall_texture} with texture_cells={texture_cells} needs "
+            f"{len(fac)} factors; pal8 fits at most {MAX_TEX_FACTORS}"
+        )
+    slabs = np.array(TEX_SLABS, np.uint32)
+    chans = np.stack([(slabs >> 16) & 0xFF, (slabs >> 8) & 0xFF, slabs & 0xFF],
+                     axis=-1).astype(np.float32)                   # [6, 3]
+    scaled = (chans[:, None, :] * fac[None, :, None]).astype(np.uint32)  # [6, F, 3]
+    tex = (scaled[..., 0] << 16) | (scaled[..., 1] << 8) | scaled[..., 2]
+    return np.concatenate([PALETTE_NP, tex.reshape(-1)]).astype(np.uint32)
+
+
+def palette_rgb_f32(palette_np: np.ndarray) -> np.ndarray:
+    """[N, 3] float32 RGB in [0, 1] decode table of a palette."""
+    p = np.asarray(palette_np, dtype=np.uint32)
+    return (
+        np.stack([(p >> 16) & 0xFF, (p >> 8) & 0xFF, p & 0xFF], axis=-1)
+        .astype(np.float32)
+        / np.float32(255.0)
+    )
+
+
 def pal8_to_u32_np(img_pal8: np.ndarray, palette: np.ndarray = None) -> np.ndarray:
-    """Decode a palette-index image to 0x00RRGGBB uint32 (host side)."""
+    """Decode a palette-index image to 0x00RRGGBB uint32 (host side);
+    textured configs pass ``cfg.palette_np``."""
     pal = PALETTE_NP if palette is None else np.asarray(palette, np.uint32)
     return pal[np.asarray(img_pal8, dtype=np.int64)]
 

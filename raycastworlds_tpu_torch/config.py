@@ -36,13 +36,16 @@ RAYCAST_BACKENDS = (
     "crossing_kernel_fused", "analytic", "pallas", "fused", "auto",
 )
 
+# The most packed words per env that the CUDA kernels hold in a block's
+# shared memory: kSmemWords of csrc/crossing_cast.cu (48 KiB of uint32).
+# ``auto`` keeps larger maps off the kernels without building them.
+KERNEL_MAX_WORDS = 48 * 1024 // 4
+
 
 @dataclasses.dataclass(frozen=True)
 class EnvConfig:
     """The JAX package's ``EnvConfig``, field for field (see its docstrings
-    for each field's meaning).  Fields whose feature the port does not have
-    yet are accepted here and rejected by the code that would use them,
-    naming the ROADMAP item that ports it."""
+    for each field's meaning)."""
 
     height_tile_map_tu: int = 8
     width_tile_map_tu: int = 16
@@ -143,10 +146,12 @@ class EnvConfig:
     def resolved_raycast_backend(self, device_type: str) -> str:
         """'auto' resolved for the device the state lives on.
 
-        On a CUDA device every float32, discrete-heading config takes the
+        On a CUDA device every float32, discrete-heading config whose packed
+        map fits the kernels' shared memory (``KERNEL_MAX_WORDS``) takes the
         hand-written ``crossing_kernel``; everything else, and every CPU
         tensor, takes the plain ``crossing`` cast.  Explicit choices are
-        never overridden.
+        never overridden: a kernel asked for by name raises where it cannot
+        run.
         """
         if self.raycast_backend != "auto":
             return self.raycast_backend
@@ -154,6 +159,7 @@ class EnvConfig:
             device_type == "cuda"
             and self.dtype == "float32"
             and not self.continuous_heading
+            and -(-self.H * self.W // 32) <= KERNEL_MAX_WORDS
         ):
             return "crossing_kernel"
         return "crossing"
@@ -234,15 +240,21 @@ class EnvConfig:
 
     @functools.cached_property
     def palette_np(self) -> np.ndarray:
-        """uint32[12] render palette of pal8 observations.  Textured scenes
-        extend it; textures are ROADMAP Queue 1 item 15."""
+        """uint32[N] render palette of pal8 observations: the 12-entry base
+        palette, extended by the 6 slab colours x F brightness factors when
+        a wall texture is on (``colors.build_texture_palette``)."""
         from . import colors
 
-        if self.wall_texture != "none":
-            raise NotImplementedError(
-                "textured palettes are not ported yet (ROADMAP Queue 1 item 15)"
-            )
-        return colors.PALETTE_NP
+        if self.wall_texture == "none":
+            return colors.PALETTE_NP
+        return colors.build_texture_palette(self.wall_texture, self.texture_cells)
+
+    @functools.cached_property
+    def palette_rgb_f32(self) -> np.ndarray:
+        """[N, 3] float32 RGB decode table of ``palette_np``."""
+        from . import colors
+
+        return colors.palette_rgb_f32(self.palette_np)
 
     @functools.cached_property
     def border_wall_map(self) -> np.ndarray:

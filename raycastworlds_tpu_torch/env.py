@@ -111,7 +111,10 @@ class Env:
 
     @property
     def observation_space(self) -> Space:
-        return Space(shape=self.cfg.obs_shape, dtype=_OBS_DTYPES[self.cfg.obs_type])
+        dtype = _OBS_DTYPES[self.cfg.obs_type]
+        if self.cfg.obs_type == "depth":  # follows EnvConfig.dtype
+            dtype = self.game.float_dtype
+        return Space(shape=self.cfg.obs_shape, dtype=dtype)
 
     # -- public ---------------------------------------------------------
 

@@ -6,30 +6,28 @@ the hooks their world needs: ``step_batch``, ``_packed_maps_batch`` (the
 obstacle union), ``_block_words_batch`` (tiles rendered in the block
 shades) and, for border-ring + unit-box maps, ``supports_analytic_raycast``
 with ``_analytic_boxes``.
+
+Headings are int32 angle units read through the config's direction and
+ray-fan tables, or, under ``continuous_heading``, float32 angle units whose
+direction (correctly rounded cos/sin, ``render.cos_f32``) and ray fan
+(``raycast.ray_fan``) are computed live.  Positions, and the rewards of the
+single-player families after their first step, have the config's float
+dtype (``EnvConfig.dtype``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..config import MOVE_FORWARD, TURN_LEFT, TURN_RIGHT, EnvConfig
-from ..ops import bitmap, collision, lut, raycast, raycast_analytic, render
+from ..ops import bitmap, collision, lut, raycast, raycast_analytic, render, sampling
 from ..ops import raycast_crossing_kernel as rck
 from ..ops import render_fused, topview
 from ..state import EnvState
-
-
-def _check_ported(cfg: EnvConfig) -> None:
-    if cfg.dtype != "float32" or cfg.continuous_heading:
-        raise NotImplementedError(
-            "float64 and continuous headings are not ported yet "
-            "(ROADMAP Queue 1 item 16)"
-        )
-    if cfg.wall_texture != "none":
-        raise NotImplementedError("textures are not ported yet (ROADMAP Queue 1 item 15)")
 
 
 class Game:
@@ -40,8 +38,9 @@ class Game:
     action_shape: tuple = ()
 
     def __init__(self, cfg: EnvConfig):
-        _check_ported(cfg)
         self.cfg = cfg
+        # torch dtype of positions and ray math (EnvConfig.dtype)
+        self.float_dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
         self._tables: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
     def _table(self, name: str, device: torch.device) -> torch.Tensor:
@@ -68,11 +67,31 @@ class Game:
     # -- heading --------------------------------------------------------
 
     def _player_dir(self, state: EnvState) -> torch.Tensor:
+        """Heading vectors f[B, 2] of ``state.dir_au`` [B]."""
+        if self.cfg.continuous_heading:
+            ang = state.dir_au.to(self.float_dtype)
+            ang = ang * torch.tensor(2.0 * math.pi / self.cfg.num_directions,
+                                     dtype=ang.dtype, device=ang.device)
+            if ang.dtype == torch.float32:
+                return torch.stack([render.cos_f32(ang), render.sin_f32(ang)], dim=-1)
+            return torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1)
         return lut.take_rows(self._table("directions_wu", state.device), state.dir_au)
 
     def _ray_dirs(self, state: EnvState, flipped: bool = False) -> torch.Tensor:
+        """Ray fans f[B, R, 2] of the headings, in cast order or, ``flipped``,
+        in column order."""
+        if self.cfg.continuous_heading:
+            fan = raycast.ray_fan(self.cfg, self._player_dir(state))
+            return torch.flip(fan, dims=(1,)) if flipped else fan
         name = "ray_fan_lut_flipped" if flipped else "ray_fan_lut"
         return lut.take_rows(self._table(name, state.device), state.dir_au)
+
+    def _spawn_pose(self, spawn_tu: torch.Tensor, k_dir: torch.Tensor):
+        """(pos_wu, dir_au) of a reset: the spawn tiles' centres in the
+        float dtype and headings drawn from ``k_dir`` (one per tile)."""
+        cfg = self.cfg
+        heading = sampling.sample_heading(k_dir, cfg.num_directions, cfg.continuous_heading)
+        return spawn_tu.to(self.float_dtype) + 0.5, heading
 
     # -- shared dynamics ------------------------------------------------
 
@@ -100,11 +119,8 @@ class Game:
         hit_wall = moving & collision.is_player_colliding_packed(
             solid_words, (cfg.H, cfg.W), cand, r
         )
-        reward = torch.where(
-            hit_goal,
-            torch.tensor(np.float32(cfg.goal_reward), device=state.device),
-            torch.tensor(np.float32(0), device=state.device),
-        )
+        reward = torch.where(hit_goal, self._reward_const(cfg.goal_reward, state),
+                             self._reward_const(0, state))
         commit = moving & ~hit_goal & ~hit_wall
         if stop is not None:
             commit = commit & ~stop
@@ -117,23 +133,35 @@ class Game:
             episode_return=state.episode_return + reward,
         )
 
+    def _reward_const(self, value, state: EnvState) -> torch.Tensor:
+        """``value`` as a 0-dim tensor of the position dtype."""
+        return torch.tensor(float(value), dtype=state.pos_wu.dtype, device=state.device)
+
     def _move_candidate(self, state: EnvState, action: torch.Tensor):
-        """(moving bool[B], candidate position f32[B, 2])."""
+        """(moving bool[B], candidate position f[B, 2])."""
         dir_wu = self._player_dir(state)
         moving = action < 2
-        sign = torch.where(action == MOVE_FORWARD, 1.0, -1.0).to(torch.float32)
-        inc = sign * float(np.float32(self.cfg.position_increment_wu))
+        sign = torch.where(action == MOVE_FORWARD, 1.0, -1.0).to(state.pos_wu.dtype)
+        inc = sign * float(self.cfg.float_dtype(self.cfg.position_increment_wu))
         return moving, state.pos_wu + inc[:, None] * dir_wu
 
     def _turned_dir(self, state: EnvState, action: torch.Tensor, moving):
-        """New heading after a turn action."""
+        """New heading after a turn action: +/-1 angle unit, or, under
+        continuous headings, +/-``turn_increment_au`` in the heading's float
+        dtype; modulo the angle units either way."""
         turn = torch.where(
             action == TURN_LEFT, 1, torch.where(action == TURN_RIGHT, -1, 0)
         )
-        step = torch.where(moving, 0, turn)
-        return torch.remainder(state.dir_au + step, self.cfg.num_directions).to(
-            torch.int32
-        )
+        d = self.cfg.num_directions
+        if not self.cfg.continuous_heading:
+            step = torch.where(moving, 0, turn)
+            return torch.remainder(state.dir_au + step, d).to(torch.int32)
+        dt = state.dir_au.dtype
+        inc = torch.tensor(float(self.cfg.turn_increment_au), dtype=dt, device=state.device)
+        step = torch.where(moving, torch.zeros((), dtype=dt, device=state.device),
+                           turn.to(dt) * inc)
+        return torch.remainder(state.dir_au + step,
+                               torch.tensor(float(d), dtype=dt, device=state.device))
 
     def _tile_word(self, tile_tu: torch.Tensor, nw: int) -> torch.Tensor:
         """int32[B, nw] one-hot packed word of one tile per env."""
@@ -181,7 +209,8 @@ class Game:
 
     def _use_fused(self) -> bool:
         """The DDA + u32 render kernel: flat-shaded float32 camera_u32, rgb
-        and gray views (rgb and gray are conversions of its image)."""
+        and gray views (rgb and gray are conversions of its image).  Textured
+        walls render after a cast, as in the JAX package."""
         cfg = self.cfg
         return (
             cfg.raycast_backend == "fused"
@@ -240,7 +269,7 @@ class Game:
         hits = self.cast_batch(state)
         return render.render_observation(
             cfg, state.wall_words, state.goal_tu, self._player_dir(state), hits,
-            block_words=self._block_words_batch(state),
+            block_words=self._block_words_batch(state), pos_wu=state.pos_wu,
         )
 
     def _maps(self, *words):
@@ -263,6 +292,6 @@ class Game:
         """uint32[B, H_pu, R] camera views whatever the ``obs_type``."""
         img = render.render_camera_u32(
             self.cfg, state.wall_words, self._player_dir(state), self.cast_batch(state),
-            block_words=self._block_words_batch(state),
+            block_words=self._block_words_batch(state), pos_wu=state.pos_wu,
         )
         return img.view(torch.uint32)

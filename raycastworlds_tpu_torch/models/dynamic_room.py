@@ -65,14 +65,15 @@ class DynamicRoom(Game):
         spawn_tu = sampling.sample_empty_interior_tile(
             k_spawn, h, w, torch.stack(ranks, dim=-1))
 
+        pos_wu, dir_au = self._spawn_pose(spawn_tu, k_dir)
         zeros_f = torch.zeros(b, dtype=torch.float32, device=dev)
         falses = torch.zeros(b, dtype=torch.bool, device=dev)
         return EnvState(
             wall_words=self._words_batch("border_wall_words", b, dev),
             goal_tu=goal_tu,
             blocks=blocks,
-            pos_wu=spawn_tu.to(torch.float32) + 0.5,
-            dir_au=sampling.sample_heading(k_dir, cfg.num_directions),
+            pos_wu=pos_wu,
+            dir_au=dir_au,
             reward=zeros_f,
             done=falses,
             rng_key=next_key.contiguous(),

@@ -84,6 +84,7 @@ class LockedRoom(Game):
         spawn_tu = sampling.sample_empty_interior_tile(
             k_spawn, h, dc + 1, sampling.interior_rank(key_tu, dc + 1)[:, None])
 
+        pos_wu, dir_au = self._spawn_pose(spawn_tu, k_dir)
         zeros_f = torch.zeros(b, dtype=torch.float32, device=dev)
         falses = torch.zeros(b, dtype=torch.bool, device=dev)
         return EnvState(
@@ -91,8 +92,8 @@ class LockedRoom(Game):
             goal_tu=goal_tu,
             key_tu=key_tu,
             key_held=falses.clone(),
-            pos_wu=spawn_tu.to(torch.float32) + 0.5,
-            dir_au=sampling.sample_heading(k_dir, cfg.num_directions),
+            pos_wu=pos_wu,
+            dir_au=dir_au,
             reward=zeros_f,
             done=falses,
             rng_key=next_key.contiguous(),

@@ -98,13 +98,14 @@ class Maze(Game):
         wall_map = self._generate_walls(k_map)
         goal_tu, spawn_tu = sampling.sample_empty_tile_pair(k_goal, k_spawn, wall_map)
 
+        pos_wu, dir_au = self._spawn_pose(spawn_tu, k_dir)
         zeros_f = torch.zeros(b, dtype=torch.float32, device=dev)
         falses = torch.zeros(b, dtype=torch.bool, device=dev)
         return EnvState(
             wall_words=bitmap.pack_bits(wall_map),
             goal_tu=goal_tu,
-            pos_wu=spawn_tu.to(torch.float32) + 0.5,
-            dir_au=sampling.sample_heading(k_dir, cfg.num_directions),
+            pos_wu=pos_wu,
+            dir_au=dir_au,
             reward=zeros_f,
             done=falses,
             rng_key=next_key.contiguous(),

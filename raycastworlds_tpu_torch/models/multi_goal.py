@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from .. import rng
@@ -68,6 +67,7 @@ class MultiGoalRoom(Game):
         spawn_tu = sampling.sample_empty_interior_tile(
             k_spawn, h, w, torch.stack(ranks, dim=-1))
 
+        pos_wu, dir_au = self._spawn_pose(spawn_tu, k_dir)
         zeros_f = torch.zeros(b, dtype=torch.float32, device=dev)
         falses = torch.zeros(b, dtype=torch.bool, device=dev)
         return EnvState(
@@ -75,8 +75,8 @@ class MultiGoalRoom(Game):
             goal_tu=goal_tiles[:, 0].contiguous(),
             goal_words=goal_words,
             goal_tiles=goal_tiles,
-            pos_wu=spawn_tu.to(torch.float32) + 0.5,
-            dir_au=sampling.sample_heading(k_dir, cfg.num_directions),
+            pos_wu=pos_wu,
+            dir_au=dir_au,
             reward=zeros_f,
             done=falses,
             rng_key=next_key.contiguous(),
@@ -100,10 +100,10 @@ class MultiGoalRoom(Game):
         hit_wall = moving & collision.is_player_colliding_packed(
             state.wall_words, shape, cand, r)
 
-        goal_reward = torch.tensor(np.float32(cfg.goal_reward), device=dev)
+        goal_reward = self._reward_const(cfg.goal_reward, state)
         if cfg.collect_all:
             goal_words = state.goal_words & ~touched
-            reward = n_hit.to(torch.float32) * goal_reward
+            reward = n_hit.to(goal_reward.dtype) * goal_reward
             done = ~(goal_words != 0).any(dim=-1)
             # keep the tile list in sync: collected rows become (-1, -1)
             tiles = state.goal_tiles
@@ -114,8 +114,7 @@ class MultiGoalRoom(Game):
         else:
             goal_words = state.goal_words
             goal_tiles = state.goal_tiles
-            reward = torch.where(hit_goal, goal_reward,
-                                 torch.tensor(np.float32(0), device=dev))
+            reward = torch.where(hit_goal, goal_reward, self._reward_const(0, state))
             done = hit_goal
 
         commit = moving & ~hit_goal & ~hit_wall

@@ -1,9 +1,11 @@
 """MultiPlayerRoom: P players in one walled room, one shared goal.
 
-The state carries a player axis: ``pos_wu`` f32[B, P, 2], ``dir_au``
-int32[B, P], ``reward`` and ``episode_return`` f32[B, P]; ``done`` stays
-bool[B] (the episode is the env's).  Actions are int32[B, P] and each
-observation gains a player axis after the env axis.
+The state carries a player axis: ``pos_wu`` f[B, P, 2] (the config's float
+dtype), ``dir_au`` [B, P] (int32, or float32 under continuous headings),
+``reward`` and ``episode_return`` f32[B, P] (float32 in every world, as in
+the JAX package); ``done`` stays bool[B] (the episode is the env's).
+Actions are int32[B, P] and each observation gains a player axis after the
+env axis.
 
 * All players act at once.  A move is tested against the walls, the goal,
   the other players' current circles (2r apart) and the candidates of the
@@ -99,15 +101,15 @@ class MultiPlayerRoom(Game):
         # P distinct spawn tiles, each excluding the goal and the earlier ones
         tiles, _ = sampling.sample_distinct_interior_tiles(
             rng.split(k_spawns, p), h, w, [sampling.interior_rank(goal_tu, w)])
-        dir_au = sampling.sample_heading(rng.split(k_dirs, p), cfg.num_directions)
+        pos_wu, dir_au = self._spawn_pose(tiles, rng.split(k_dirs, p))      # [B, P, 2], [B, P]
 
         zeros_p = torch.zeros((b, p), dtype=torch.float32, device=dev)
         falses = torch.zeros(b, dtype=torch.bool, device=dev)
         return EnvState(
             wall_words=self._words_batch("border_wall_words", b, dev),
             goal_tu=goal_tu,
-            pos_wu=tiles.to(torch.float32) + 0.5,                   # [B, P, 2]
-            dir_au=dir_au,                                          # [B, P]
+            pos_wu=pos_wu,
+            dir_au=dir_au,
             reward=zeros_p,
             done=falses,
             rng_key=next_key.contiguous(),
@@ -133,7 +135,7 @@ class MultiPlayerRoom(Game):
             cand.reshape(b * p, 2), r).reshape(b, p)
 
         if cfg.player_collision:
-            thresh = float(np.float32((2.0 * r) ** 2))
+            thresh = float(cfg.float_dtype((2.0 * r) ** 2))
             # test 1: candidate against the others' current circles
             others = ~torch.eye(p, dtype=torch.bool, device=dev)
             hit_player = moving & (others & (_dist_sq(cand, state.pos_wu) < thresh)).any(dim=-1)
@@ -163,7 +165,7 @@ class MultiPlayerRoom(Game):
         )
 
     def _move_candidate(self, state: EnvState, action: torch.Tensor):
-        """(moving bool[B, P], candidate positions f32[B, P, 2])."""
+        """(moving bool[B, P], candidate positions f[B, P, 2])."""
         moving, cand = super()._move_candidate(
             _flat(state), action.reshape(-1))
         return moving.reshape(action.shape), cand.reshape(state.pos_wu.shape)
@@ -199,8 +201,8 @@ class MultiPlayerRoom(Game):
         return bitmap.tiles_to_words(others, (self.cfg.H, self.cfg.W), nw)
 
     def _cast_players(self, state: EnvState):
-        """(walls, player dirs, hits, t_sprite or None, blocks) of every
-        player's view, flattened to [B*P, ...]: one batch cast of B*P
+        """(walls, player dirs, hits, t_sprite or None, blocks, positions) of
+        every player's view, flattened to [B*P, ...]: one batch cast of B*P
         poses."""
         cfg: MultiPlayerConfig = self.cfg
         b, p = state.dir_au.shape
@@ -214,13 +216,15 @@ class MultiPlayerRoom(Game):
             others = ~torch.eye(p, dtype=torch.bool, device=pos.device)
             t_s = render.ray_circle_t(
                 pos, hits.ray_dirs, centers, others.repeat(b, 1),
-                np.float32(cfg.player_radius_wu ** 2))
-        return walls, self._player_dir(flat), hits, t_s, blocks
+                cfg.float_dtype(cfg.player_radius_wu ** 2))
+        return walls, self._player_dir(flat), hits, t_s, blocks, pos
 
-    def _camera_u32(self, walls, pdir, hits, t_s, blocks) -> torch.Tensor:
-        """int32[B*P, H_pu, R] camera views with the sprites drawn."""
+    def _camera_u32(self, walls, pdir, hits, t_s, blocks, pos) -> torch.Tensor:
+        """int32[B*P, H_pu, R] camera views with the sprites drawn; each
+        player's textured walls from that player's position ``pos``."""
         cfg: MultiPlayerConfig = self.cfg
-        img = render.render_camera_u32(cfg, walls, pdir, hits, block_words=blocks)
+        img = render.render_camera_u32(cfg, walls, pdir, hits, block_words=blocks,
+                                       pos_wu=pos)
         if t_s is not None:
             img = render.sprite_overlay(cfg, img, pdir, hits, t_s, colors.TILE_BLOCK,
                                         cfg.sprite_height_wu)
@@ -242,18 +246,19 @@ class MultiPlayerRoom(Game):
             return unflat(render.tile_grid(
                 cfg, state.wall_words.repeat_interleave(p, dim=0),
                 state.goal_tu.repeat_interleave(p, dim=0), blocks))
-        walls, pdir, hits, t_s, blocks = self._cast_players(state)
+        walls, pdir, hits, t_s, blocks, pos = self._cast_players(state)
         if cfg.obs_type == "depth":
             if t_s is not None:
                 hits = hits._replace(dist_wu=torch.minimum(hits.dist_wu, t_s))
             return unflat(torch.flip(render.projected_depth(pdir, hits), dims=(1,)))
         if cfg.obs_type == "camera_pal8":
-            img = render.render_camera_pal8(cfg, walls, pdir, hits, block_words=blocks)
+            img = render.render_camera_pal8(cfg, walls, pdir, hits, block_words=blocks,
+                                            pos_wu=pos)
             if t_s is not None:
                 img = render.sprite_overlay(cfg, img, pdir, hits, t_s, colors.PAL_BLOCK,
                                             cfg.sprite_height_wu)
             return unflat(img)
-        img = self._camera_u32(walls, pdir, hits, t_s, blocks)
+        img = self._camera_u32(walls, pdir, hits, t_s, blocks, pos)
         if cfg.obs_type == "camera_u32":
             return unflat(img.view(torch.uint32))
         if cfg.obs_type == "camera_rgb":

@@ -89,13 +89,14 @@ class RandomRoom(Game):
         spawn_tu = torch.where(has_valid[:, None], sampled, fallback)
         wall_map = _without(wall_map, spawn_tu)
 
+        pos_wu, dir_au = self._spawn_pose(spawn_tu, k_dir)
         zeros_f = torch.zeros(b, dtype=torch.float32, device=dev)
         falses = torch.zeros(b, dtype=torch.bool, device=dev)
         return EnvState(
             wall_words=bitmap.pack_bits(wall_map),
             goal_tu=goal_tu,
-            pos_wu=spawn_tu.to(torch.float32) + 0.5,
-            dir_au=sampling.sample_heading(k_dir, cfg.num_directions),
+            pos_wu=pos_wu,
+            dir_au=dir_au,
             reward=zeros_f,
             done=falses,
             rng_key=next_key.contiguous(),

@@ -31,8 +31,7 @@ class SingleRoom(Game):
         # Spawn: uniform over interior tiles minus the goal, in closed form.
         spawn_tu = sampling.sample_empty_interior_tile(
             k_spawn, cfg.H, cfg.W, sampling.interior_rank(goal_tu, cfg.W)[:, None])
-        pos_wu = spawn_tu.to(torch.float32) + 0.5                # tile centre
-        dir_au = sampling.sample_heading(k_dir, cfg.num_directions)
+        pos_wu, dir_au = self._spawn_pose(spawn_tu, k_dir)        # tile centre
 
         zeros_f = torch.zeros(b, dtype=torch.float32, device=dev)
         falses = torch.zeros(b, dtype=torch.bool, device=dev)

@@ -20,23 +20,24 @@ _OFFS = np.stack(
 ).reshape(9, 2)
 
 
-def _radius_sq(radius, dtype) -> float:
-    r = np.dtype(dtype).type(radius)
+def _radius_sq(radius, dtype: torch.dtype) -> float:
+    """``radius`` rounded to ``dtype`` (float32 or float64), squared there."""
+    r = (np.float64 if dtype == torch.float64 else np.float32)(radius)
     return float(r * r)
 
 
 def is_colliding_tile(
     pos_wu: torch.Tensor, tile_tu: torch.Tensor, radius
 ) -> torch.Tensor:
-    """Circle at ``pos_wu`` (f32[..., 2]) vs unit AABB at ``tile_tu``
-    (i32[..., 2]) -> bool[...]."""
+    """Circle at ``pos_wu`` (f[..., 2]) vs unit AABB at ``tile_tu``
+    (i32[..., 2]) -> bool[...]; the radius squared in ``pos_wu``'s dtype."""
     center = tile_tu.to(pos_wu.dtype) + 0.5
     rel = pos_wu - center
     proj = torch.clamp(rel, -0.5, 0.5)
     e = rel - proj
     sq = e * e
     d2 = sq[..., 0] + sq[..., 1]
-    return d2 < _radius_sq(radius, np.float32)
+    return d2 < _radius_sq(radius, pos_wu.dtype)
 
 
 def _neighbourhood(pos_wu: torch.Tensor, shape):

@@ -11,29 +11,57 @@ This is the plain ``crossing`` backend and the parity reference of the JAX
 package's ``ops/raycast.cast_rays_crossing``: the same float32 expressions,
 tie rules and clip-and-mask handling.  ``t`` is add-then-divide (one
 correctly rounded division, never a contractible mul+add); the cross
-coordinate ``p + t*d`` is two eager ops, so it rounds twice.
+coordinate ``p + t*d`` is two eager ops, so it rounds twice.  The plain
+casts (crossing and scan) also take float64 positions and rays (a float64
+world), where a miss is the largest float64; the kernels take float32 only.
 """
 
 from __future__ import annotations
 
 from typing import List, NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from ..config import EnvConfig
 from . import bitmap
 
-_BIG = float(np.finfo(np.float32).max)
+
+def _big(x: torch.Tensor) -> float:
+    """The miss distance: the largest value of ``x``'s float dtype."""
+    return float(torch.finfo(x.dtype).max)
 
 
 class RayHits(NamedTuple):
-    """Per-ray cast results."""
+    """Per-ray cast results (f: float32, or float64 in a float64 world)."""
 
-    ray_dirs: torch.Tensor  # f32[B, R, 2] normalized ray directions
+    ray_dirs: torch.Tensor  # f[B, R, 2] normalized ray directions
     hit_tu: torch.Tensor    # i32[B, R, 2] hit tile
     hit_dim: torch.Tensor   # i32[B, R]    0 = i-face, 1 = j-face
-    dist_wu: torch.Tensor   # f32[B, R]    distance along the ray to the face
+    dist_wu: torch.Tensor   # f[B, R]      distance along the ray to the face
+
+
+def ray_fan(cfg: EnvConfig, player_dir_wu: torch.Tensor) -> torch.Tensor:
+    """Normalized ray directions f[B, R, 2] of heading vectors f[B, 2], the
+    live formula of continuous headings: the rays lerp across the camera
+    plane from ``dir + sfov*cam`` to ``dir - sfov*cam`` with ``cam`` the
+    heading turned by -90 degrees, then normalize.  Every product and sum
+    rounds on its own (the discrete headings' ``ray_fan_lut`` is this
+    formula in float64, cast once); the norm's square root is correctly
+    rounded."""
+    from .render import sqrt_of
+
+    d = player_dir_wu
+    dt = d.dtype
+    cam = torch.stack([d[:, 1], -d[:, 0]], dim=-1)
+    s = torch.tensor(cfg.semi_field_of_view_wu, dtype=dt, device=d.device)
+    first = d + s * cam
+    last = d - s * cam
+    r = cfg.num_rays
+    t = torch.arange(r, dtype=dt, device=d.device) / torch.tensor(
+        float(r - 1), dtype=dt, device=d.device)
+    un = first[:, None, :] + t[None, :, None] * (last - first)[:, None, :]   # [B, R, 2]
+    norm = sqrt_of(un[..., 0] * un[..., 0] + un[..., 1] * un[..., 1])
+    return un / norm[..., None]
 
 
 def _crossing_axis(
@@ -49,7 +77,7 @@ def _crossing_axis(
 
     Returns (best_t f32[B, R], main_tile i32[B, R], cross_tile i32[B, R]):
     the smallest crossing distance whose entered tile is occupied, or the
-    largest float32 when no crossing of this axis hits.
+    largest float when no crossing of this axis hits.
     """
     h, w = shape
     dev = d_main.device
@@ -100,7 +128,7 @@ def _crossing_axis(
             hit_q = hit_q & ((c_idx >> 5) == q)
         occ = hit_q if occ is None else occ | hit_q
     occ = occ & finite
-    t_m = torch.where(occ, t, _BIG)                              # [B, N, R]
+    t_m = torch.where(occ, t, _big(t))                           # [B, N, R]
 
     # (t, k) lexicographic min: the smallest t, and among equal t the
     # smallest k.  An axis with no hit selects k = 0, as the JAX reduce
@@ -182,7 +210,7 @@ def cast_rays_scan(
     each axis; each step advances the axis with the smaller side (a tie
     steps j) and the hit distance is that side before the step.  Hit rays
     freeze; rays that never hit march every step, and ``hit_tu`` is the
-    final map position either way (dist the largest float32 on a miss).
+    final map position either way (dist the largest float on a miss).
     ``early_exit`` stops once every ray has hit (a host sync per step);
     frozen rays are no-ops, so the results are the same.
 
@@ -210,7 +238,7 @@ def cast_rays_scan(
 
     hit = torch.zeros_like(dx, dtype=torch.bool)
     hit_dim = torch.zeros_like(dx, dtype=torch.int32)
-    dist = torch.full_like(dx, _BIG)
+    dist = torch.full_like(dx, _big(dx))
     for _ in range(max_steps):
         if early_exit and bool(hit.all()):
             break
@@ -233,8 +261,9 @@ def cast_rays_scan(
 
 
 def check_cast_inputs(obstacle_words, shape, pos_wu, ray_dirs) -> None:
-    """Raise unless the batch cast contract holds: words i32[B, NW] packing
-    an H x W map, pos f32[B, 2] and dirs f32[B, R, 2], on one device."""
+    """Raise unless the kernels' batch cast contract holds: words i32[B, NW]
+    packing an H x W map, pos f32[B, 2] and dirs f32[B, R, 2], on one
+    device (the kernels refuse float64 input)."""
     h, w = shape
     if obstacle_words.dim() != 2 or pos_wu.dim() != 2 or ray_dirs.dim() != 3:
         raise ValueError("expected words [B, NW], pos [B, 2], dirs [B, R, 2]")
@@ -279,7 +308,8 @@ def cast_rays(
     * ``crossing_kernel`` and ``crossing_kernel_fused``: the crossing cast
       kernel (the fused backend renders pal8 in its own kernel and casts
       through this one for every other observation);
-    * ``crossing``: the plain crossing cast;
+    * ``crossing``: the plain crossing cast (and the two kernel backends in
+      a float64 world);
     * ``pallas``: the DDA kernel;
     * ``scan``, ``scan_flat``, ``fused`` and ``analytic``: the plain DDA
       (the fused backend renders camera_u32/rgb/gray in its own kernel and
@@ -289,6 +319,10 @@ def cast_rays(
       package).
     """
     backend = cfg.resolved_raycast_backend(pos_wu.device.type)
+    if backend in ("crossing_kernel", "crossing_kernel_fused") and cfg.dtype == "float64":
+        # the kernel is float32 only; a float64 world casts by the plain
+        # crossing, as the JAX package's cast_batch does
+        backend = "crossing"
     shape = (cfg.H, cfg.W)
     if backend in ("crossing_kernel", "crossing_kernel_fused"):
         from . import raycast_crossing_kernel as rck

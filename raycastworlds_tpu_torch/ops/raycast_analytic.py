@@ -25,8 +25,8 @@ from .raycast import RayHits
 def cast_rays_boxes(
     cfg: EnvConfig,
     boxes_tu: torch.Tensor,   # i32[B, K, 2]
-    pos_wu: torch.Tensor,     # f32[B, 2]
-    ray_dirs: torch.Tensor,   # f32[B, R, 2]
+    pos_wu: torch.Tensor,     # f[B, 2] (float32, or float64 in a float64 world)
+    ray_dirs: torch.Tensor,   # f[B, R, 2], the same dtype
 ) -> RayHits:
     """First hit of every ray against the border ring and the K unit boxes
     of its env.  Box rows outside the interior (e.g. (-1, -1) for collected
@@ -35,12 +35,12 @@ def cast_rays_boxes(
     dev = pos_wu.device
     dx, dy = ray_dirs[..., 0], ray_dirs[..., 1]              # [B, R]
     px, py = pos_wu[:, 0:1], pos_wu[:, 1:2]                  # [B, 1]
-    f32 = lambda v: torch.tensor(float(v), dtype=torch.float32, device=dev)  # noqa: E731
-    inf = f32("inf")
+    fc = lambda v: torch.tensor(float(v), dtype=ray_dirs.dtype, device=dev)  # noqa: E731
+    inf = fc("inf")
 
     # border walls: inner faces at i = 1 / H-1 and j = 1 / W-1
-    face_i = torch.where(dx > 0, f32(h - 1), f32(1))
-    face_j = torch.where(dy > 0, f32(w - 1), f32(1))
+    face_i = torch.where(dx > 0, fc(h - 1), fc(1))
+    face_j = torch.where(dy > 0, fc(w - 1), fc(1))
     t_i = torch.where(dx != 0, (face_i - px) / dx, inf)
     t_j = torch.where(dy != 0, (face_j - py) / dy, inf)
     wall_dim = torch.where(t_i < t_j, 0, 1).to(torch.int32)
@@ -54,7 +54,7 @@ def cast_rays_boxes(
     wj = torch.clamp(wj, 0, w - 1)
 
     # K unit boxes: slab test on [gi, gi+1] x [gj, gj+1], as [B, R, K]
-    g0 = boxes_tu.to(torch.float32)[:, None, :, :]           # [B, 1, K, 2]
+    g0 = boxes_tu.to(ray_dirs.dtype)[:, None, :, :]          # [B, 1, K, 2]
     g1 = g0 + 1.0
     dxk, dyk = dx[..., None], dy[..., None]                  # [B, R, 1]
     pxk, pyk = px[..., None], py[..., None]                  # [B, 1, 1]

@@ -108,7 +108,11 @@ def sample_interior_tile(key: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return rng.randint(key, (2,), [1, 1], [h - 1, w - 1])
 
 
-def sample_heading(key: torch.Tensor, num_directions: int) -> torch.Tensor:
-    """Uniform discrete heading in ``[0, num_directions)``: i32[B]
-    (continuous headings are ROADMAP Queue 1 item 16)."""
+def sample_heading(key: torch.Tensor, num_directions: int,
+                   continuous: bool = False) -> torch.Tensor:
+    """Uniform heading in ``[0, num_directions)`` per key: an int32 angle
+    unit, or, for continuous headings, a float32 ``uniform`` with maxval
+    ``num_directions``."""
+    if continuous:
+        return rng.uniform(key, (), maxval=float(num_directions))
     return rng.randint(key, (), 0, num_directions)

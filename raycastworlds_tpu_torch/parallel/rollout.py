@@ -45,8 +45,9 @@ def rollout_random(
 
 def steps_per_second_program(env: Env, num_steps: int):
     """Build the throughput program: ``run(state, key)`` takes ``num_steps``
-    random steps and reduces every observation to one float32 checksum on
-    the device, so the images are produced but never leave it.  Returns
+    random steps and reduces every observation to one checksum on the
+    device (float32, or float64 where the observations or rewards are
+    float64), so the images are produced but never leave it.  Returns
     ``(final_state, checksum)``; the caller's host read of the checksum
     ends a timed region."""
 
@@ -64,6 +65,8 @@ def steps_per_second_program(env: Env, num_steps: int):
             if obs.dtype == torch.uint32:
                 # colours are < 2**24, so the int32 view converts exactly
                 chk = (obs.view(torch.int32).to(torch.float32) * 2.0**-24).sum()
+            elif obs.dtype == torch.float64:
+                chk = obs.sum()
             else:
                 chk = obs.to(torch.float32).sum()
             acc = acc + chk + res.reward.sum()

@@ -5,19 +5,26 @@ dimension written out as the leading ``[B]`` axis:
 
   wall_words      int32[B, nw]  bit-packed walls (uint32 bit patterns)
   goal_tu         int32[B, 2]   goal tile
-  pos_wu          float32[B, 2] player position
-  dir_au          int32[B]      heading in [0, num_directions)
-  reward          float32[B]
+  pos_wu          f[B, 2]       player position
+  dir_au          int32[B]      heading in [0, num_directions); float32
+                                under ``continuous_heading``
+  reward          f[B]
   done            bool[B]
   rng_key         int64[B, 2]   per-env threefry key (uint32 words, see rng)
   t               int32[B]      steps taken in the current episode
-  episode_return  float32[B]
+  episode_return  f[B]
   pending_reset   bool[B]       episode ended, reset still owed (only under
                                 ``Env(reset_budget=K)``)
 
+``f`` is float32, or float64 under ``EnvConfig(dtype="float64")``: there
+positions are float64 from the reset on, and reward and return become
+float64 at the first step (a reset writes float32 zeros, as in the JAX
+package).
+
 MultiPlayerRoom adds a player axis to the pose and the rewards: ``pos_wu``
-float32[B, P, 2], ``dir_au`` int32[B, P], ``reward`` and ``episode_return``
-float32[B, P] (``done`` stays bool[B]); :func:`select` broadcasts by rank.
+f[B, P, 2], ``dir_au`` [B, P], ``reward`` and ``episode_return``
+float32[B, P] in every world (``done`` stays bool[B]); :func:`select`
+broadcasts by rank.
 
 And the optional leaves of the families that use them (None elsewhere):
 
@@ -93,8 +100,9 @@ class EnvState:
     @classmethod
     def from_numpy(cls, leaves: Dict[str, np.ndarray], device=None) -> "EnvState":
         """Build a state from the JAX package's ``EnvState`` leaves given as
-        numpy arrays (uint32 words and keys, int32, float32, bool).  Optional
-        leaves that are absent or None stay None."""
+        numpy arrays (uint32 words and keys, int32, float32 or float64,
+        bool); float leaves keep their dtype.  Optional leaves that are
+        absent or None stay None."""
         def conv(name, a):
             a = np.asarray(a)
             if name in _WORD_LEAVES:

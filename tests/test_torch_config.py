@@ -4,6 +4,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import raycastworlds_tpu as rcw
 import raycastworlds_tpu_torch as rt
@@ -85,14 +86,48 @@ def test_auto_backend_is_device_aware():
     assert explicit.resolved_raycast_backend("cuda") == "crossing"
 
 
+def test_auto_keeps_large_maps_off_the_kernel():
+    """On the card ``auto`` takes the crossing kernel only for maps whose
+    packed words fit its shared memory (KERNEL_MAX_WORDS, the kernel's
+    kSmemWords); a 640x640 map (12,800 words) takes the plain crossing
+    cast, and an explicit kernel backend is left as asked."""
+    big = dict(height_tile_map_tu=640, width_tile_map_tu=640)
+    assert rt.EnvConfig(**big).resolved_raycast_backend("cuda") == "crossing"
+    assert rcw.EnvConfig(**big).resolved_raycast_backend == "crossing"
+    from raycastworlds_tpu_torch.config import KERNEL_MAX_WORDS
+
+    assert KERNEL_MAX_WORDS == 12288
+    assert -(-640 * 640 // 32) == 12800 > KERNEL_MAX_WORDS
+    # the largest square map whose words fit still takes the kernel
+    fits = dict(height_tile_map_tu=627, width_tile_map_tu=627)
+    assert -(-627 * 627 // 32) <= KERNEL_MAX_WORDS
+    assert rt.EnvConfig(**fits).resolved_raycast_backend("cuda") == "crossing_kernel"
+    assert rt.EnvConfig().resolved_raycast_backend("cuda") == "crossing_kernel"
+    for backend in ("crossing_kernel", "crossing_kernel_fused", "pallas", "fused"):
+        cfg = rt.EnvConfig(**big, raycast_backend=backend)
+        assert cfg.resolved_raycast_backend("cuda") == backend
+
+
 @pytest.mark.parametrize(
     "kw",
     [dict(wall_texture="checker"), dict(dtype="float64"),
      dict(continuous_heading=True)],
 )
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.SingleRoom(rt.EnvConfig(**kw))
+    """The options of the last slices (textures, float64 worlds, continuous
+    headings) construct in the port and a 2-env CPU Env resets and steps
+    with them, in the dtypes of the JAX package's state."""
+    cfg = rt.EnvConfig(num_rays=8, height_camera_view_pu=8, **kw)
+    assert cfg.resolved_raycast_backend("cpu") == "crossing"
+    env = rt.Env(rt.SingleRoom(cfg), num_envs=2, device="cpu")
+    state, obs = env.reset(rt.rng.PRNGKey(0))
+    res = env.step(state, torch.tensor([2, 0], dtype=torch.int32))
+    assert res.obs.shape == (2, 8, 8) and res.obs.dtype == torch.uint32
+    f = torch.float64 if kw.get("dtype") == "float64" else torch.float32
+    h = torch.float32 if kw.get("continuous_heading") else torch.int32
+    assert res.state.pos_wu.dtype == f and res.state.dir_au.dtype == h
+    assert res.reward.dtype == f
+    assert bool(torch.isfinite(res.state.pos_wu).all())
 
 
 @pytest.mark.parametrize(

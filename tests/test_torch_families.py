@@ -7,7 +7,9 @@ envs 0-7 are placed 0.3 world units above a target tile facing it (the goal;
 for LockedRoom envs 0-3 face the key) so that goals, collections and key
 pickups happen within the 40 steps of numpy-seeded, forward-biased actions.
 Every state leaf (the optional ones included), the observation, the reward,
-done and every info entry are compared at every step (exact).
+done and every info entry are compared at every step (exact).  Then every
+family (MultiPlayerRoom too) resets and steps on the CPU with each option
+of the textures / continuous-heading / float64 slice.
 """
 
 import jax
@@ -162,3 +164,52 @@ def test_family_state_numpy_round_trip(name):
     a = np.random.default_rng(8).integers(0, 4, size=8).astype(np.int32)
     assert_state_equal(env.step(ts, torch.from_numpy(a)).state,
                        jenv.step(js, jnp.asarray(a)).state)
+
+
+FAMILIES = {
+    "single_room": ("SingleRoom", "EnvConfig"),
+    "random_room": ("RandomRoom", "RandomRoomConfig"),
+    "maze": ("Maze", "MazeConfig"),
+    "multi_goal": ("MultiGoalRoom", "MultiGoalConfig"),
+    "dynamic_room": ("DynamicRoom", "DynamicRoomConfig"),
+    "locked_room": ("LockedRoom", "LockedRoomConfig"),
+    "multi_player": ("MultiPlayerRoom", "MultiPlayerConfig"),
+}
+OPTIONS = {
+    "checker": dict(wall_texture="checker"),
+    "brick_pal8": dict(wall_texture="brick", obs_type="camera_pal8"),
+    "xor": dict(wall_texture="xor", texture_cells=16),
+    "continuous": dict(continuous_heading=True, turn_increment_au=0.7),
+    "float64": dict(dtype="float64"),
+}
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_every_family_runs_every_option(family, option):
+    """Each family constructs and steps on the CPU with each option of the
+    last slice (wall textures, continuous headings, float64 worlds), in the
+    JAX package's leaf dtypes; a heading turned by 0.7 stays fractional."""
+    game, config = FAMILIES[family]
+    kw = dict(num_rays=16, height_camera_view_pu=12, **OPTIONS[option])
+    if family in ("random_room", "maze"):
+        kw.update(height_tile_map_tu=9, width_tile_map_tu=9)
+    env = rt.Env(getattr(rt, game)(getattr(rt, config)(**kw)), num_envs=3, device="cpu")
+    state, obs = env.reset(rt.rng.PRNGKey(1))
+    a = np.full((3,) + env.game.action_shape, 2, np.int32)
+    res = env.step(state, torch.from_numpy(a))
+    assert tuple(res.obs.shape) == (3,) + env.cfg.obs_shape
+    assert res.obs.dtype == env.observation_space.dtype
+    f = torch.float64 if option == "float64" else torch.float32
+    assert res.state.pos_wu.dtype == f and bool(torch.isfinite(res.state.pos_wu).all())
+    if option == "continuous":
+        d = np_(res.state.dir_au)
+        assert d.dtype == np.float32 and np.all(np.abs(d - np.round(d)) > 1e-3)
+    else:
+        assert res.state.dir_au.dtype == torch.int32
+    if option != "continuous" and "wall_texture" in kw:
+        flat = rt.Env(getattr(rt, game)(getattr(rt, config)(
+            **{**kw, "wall_texture": "none"})), num_envs=3, device="cpu")
+        _, fobs = flat.reset(rt.rng.PRNGKey(1))
+        as_i = lambda x: x.view(torch.int32) if x.dtype == torch.uint32 else x  # noqa: E731
+        assert not torch.equal(as_i(obs), as_i(fobs))  # the walls are textured

@@ -1,11 +1,14 @@
 """The port reproduces the JAX package's pinned golden frames
-(tests/data/golden_frames.npz) on the CPU, exactly: every key without a
-wall texture (textures are ROADMAP Queue 1 item 15).
+(tests/data/golden_frames.npz) on the CPU, exactly: every key, the
+checker, brick and xor wall textures included.  The jitted JAX package
+computes the texture's cross coordinate and xor factor with FMAs where the
+port rounds twice; no pixel of these frames moves for it.
 
 The frame follows tests/test_golden_images.py: for the first of the seeds
 (1234, 7, 42, 99) whose frame has at least 3 colours, reset, then actions
 2, 0, 3 (for every player), then observe.  chip_smoke.py repeats
-"single_room", "multi_player" and "top_view" on the card.
+"single_room", the three textured keys, "multi_player" and "top_view" on
+the card.
 """
 
 import os
@@ -21,6 +24,9 @@ _DATA = os.path.join(os.path.dirname(__file__), "data", "golden_frames.npz")
 
 # key -> the game of tests/test_golden_images.py's case
 CASES = {
+    **{f"single_room_{tex}": (lambda tex=tex: rt.SingleRoom(rt.EnvConfig(
+        num_rays=64, height_camera_view_pu=48, wall_texture=tex, texture_cells=8)))
+       for tex in ("checker", "brick", "xor")},
     "maze": lambda: rt.Maze(rt.MazeConfig(
         height_tile_map_tu=11, width_tile_map_tu=11, num_rays=64, height_camera_view_pu=48)),
     "random_room": lambda: rt.RandomRoom(rt.RandomRoomConfig(

@@ -344,8 +344,11 @@ def test_config_and_ported_features():
         rt.MultiPlayerConfig(sprite_height_wu=0.0)
     with pytest.raises(TypeError):
         rt.MultiPlayerRoom(rt.EnvConfig())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        rt.MultiPlayerRoom(rt.MultiPlayerConfig(continuous_heading=True))
+    cont = rt.MultiPlayerRoom(rt.MultiPlayerConfig(continuous_heading=True, num_rays=8,
+                                                   height_camera_view_pu=8))
+    cs = cont.reset_batch(rt.rng.split(rt.rng.PRNGKey(0), 2))
+    assert cs.dir_au.shape == (2, 2) and cs.dir_au.dtype == torch.float32
+    assert cont.observe_batch(cs).shape == (2, 2, 8, 8)
     cfg = rt.MultiPlayerConfig(num_players=3, num_rays=16, height_camera_view_pu=8)
     assert cfg.obs_shape == rcw.MultiPlayerConfig(
         num_players=3, num_rays=16, height_camera_view_pu=8).obs_shape == (3, 8, 16)

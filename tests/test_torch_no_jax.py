@@ -22,6 +22,12 @@ for backend in ("auto", "fused"):
     state, obs = env.reset(rt.rng.PRNGKey(0))
     env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
 small = dict(num_rays=8, height_camera_view_pu=8)
+for kw in (dict(wall_texture="xor", obs_type="camera_pal8"),
+           dict(continuous_heading=True, turn_increment_au=0.7),
+           dict(dtype="float64", obs_type="depth")):
+    env = rt.Env(rt.SingleRoom(rt.EnvConfig(**small, **kw)), num_envs=2, device="cpu")
+    state, obs = env.reset(rt.rng.PRNGKey(0))
+    env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
 for game in (rt.RandomRoom(rt.RandomRoomConfig(**small)), rt.Maze(rt.MazeConfig(**small)),
              rt.MultiGoalRoom(rt.MultiGoalConfig(**small, raycast_backend="analytic")),
              rt.DynamicRoom(rt.DynamicRoomConfig(**small)),

@@ -62,7 +62,8 @@ def _case(kw, b=6, seed=0, blocks=False):
     )(jnp.asarray(pack_bits_np(obst)), jnp.asarray(pos), jnp.asarray(dirs))
     return dict(
         jcfg=jcfg, cfg=rt.EnvConfig(**kw), wall_words=pack_bits_np(walls),
-        block_words=block_words, goal=goal, pdir=pdir, dirs=dirs, hit_tu=np.asarray(hit_tu),
+        block_words=block_words, goal=goal, pos=pos, pdir=pdir, dirs=dirs,
+        hit_tu=np.asarray(hit_tu),
         hit_dim=np.asarray(hit_dim), dist=np.asarray(dist),
     )
 
@@ -222,9 +223,12 @@ def test_slab_slots_block_words():
 
 @pytest.mark.parametrize("what", ["tile_grid", "top_u32", "texture"])
 def test_unported_render_paths_raise(what):
-    """Textures are still to port and raise naming their ROADMAP item; the
-    tile grid is ported (exact against the JAX package, block words
-    included); a top view is not drawn from camera hits and raises."""
+    """The tile grid is exact against the JAX package, block words
+    included; a top view is not drawn from camera hits and raises; a
+    textured render needs the ray origins (ValueError without them, as in
+    the JAX package) and is exact against the JAX render run eagerly in
+    camera_u32 and camera_pal8, with the pal8 frame decoding to the u32
+    one through the extended palette."""
     c = _case(CONFIGS[0], blocks=True)
     if what == "tile_grid":
         got = _torch_obs(c, what)
@@ -234,8 +238,32 @@ def test_unported_render_paths_raise(what):
         return
     if what == "texture":
         c["cfg"] = dataclasses.replace(c["cfg"], wall_texture="checker")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        c["jcfg"] = dataclasses.replace(c["jcfg"], wall_texture="checker")
+        with pytest.raises(ValueError, match="pos_wu"):
             _torch_obs(c, "camera_u32")
+        t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+        hits = raycast.RayHits(ray_dirs=t(c["dirs"]), hit_tu=t(c["hit_tu"]),
+                               hit_dim=t(c["hit_dim"]), dist_wu=t(c["dist"]))
+        args = (t(c["wall_words"].view(np.int32)), t(c["pdir"]), hits)
+        kw = dict(block_words=t(c["block_words"].view(np.int32)), pos_wu=t(c["pos"]))
+        u32 = render.render_camera_u32(c["cfg"], *args, **kw).view(torch.uint32).numpy()
+        pal8 = render.render_camera_pal8(c["cfg"], *args, **kw).numpy()
+
+        def one(pal, ww, pd, d, ht, hd, ds, bw, p):
+            h = jraycast.RayHits(ray_dirs=d, hit_tu=ht, hit_dim=hd, dist_wu=ds)
+            fn = jrender.render_camera_pal8 if pal else jrender.render_camera_u32
+            return fn(c["jcfg"], ww, pd, h, bw, pos_wu=p)
+
+        jargs = [jnp.asarray(c[k]) for k in ("wall_words", "pdir", "dirs", "hit_tu",
+                                             "hit_dim", "dist", "block_words", "pos")]
+        with jax.disable_jit():
+            for pal, got in ((False, u32), (True, pal8)):
+                want = np.asarray(jax.vmap(lambda *a: one(pal, *a))(*jargs))
+                np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            render.pal8_to_u32(torch.from_numpy(pal8), c["cfg"].palette_np)
+            .view(torch.uint32).numpy(), u32)
+        assert len(np.unique(u32)) > 8 and pal8.max() >= rt.colors.PAL_TEX_BASE + 8
         return
     with pytest.raises(ValueError, match="topview"):
         _torch_obs(c, what)
