@@ -80,10 +80,30 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    per call (CUDA events around 20 calls), the plain version's time, the
    bound (the larger of the bytes read and written over 3.35 TB/s and the
    float operations this data needs over 67 TFLOP/s) and the share of
-   bound (bound / device time).
+   bound (bound / device time); the crossing cast also at the PPO rows'
+   shapes ([2048, 64] and [4096, 64]);
+7. the JAX bench's three PPO rows at full width (SingleRoom 64 rays x 64
+   px under ``auto``, mlp trunk of hidden 256 in bfloat16, rollout 64, 4
+   minibatches): ``ppo_train_step_mlp_bf16`` (camera_gray, 2048 envs, 2
+   epochs), ``ppo_train_step_throughput`` (camera_gray_u8, 4096 envs, 1
+   epoch) and ``ppo_train_step_recurrent_gru`` (the GRU trainer, as the
+   first).  Each: ``init``, a warm-up ``train_step`` and 2 timed ones, with
+   ``crossing_cast`` launched once per observation (the reset's, then 66
+   per feedforward step, 65 per GRU step) and no other kernel, finite
+   metrics and moved params; env-steps/s through the train step, the
+   rollout and update phases' ms (CUDA-synchronised) and the peak device
+   memory.  Then one float32 train step of the first row through the
+   kernel and through the plain crossing cast from one key (TF32 off):
+   identical actions, rewards, dones and final states, params within 1e-5;
+   the host ms of each layer of the first row's train step alone (env
+   step, policy forward, sampling, key split, GAE, permutation, one
+   minibatch's forward and backward, one Adam update); and a torch.profiler
+   profile of one feedforward train step (wall and device ms, busy share,
+   device activities).
 
 The line before the last is the kernels' JSON record: each kernel's
-launches summed over the main paths that route through it, its numbers at
+launches summed over the main paths (and the PPO rows) that route through
+it, its numbers at
 the reference-default shape and, under ``shapes``, at every main-path
 shape with its launches per step; the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises: there is no fallback, and a
@@ -970,6 +990,297 @@ def main_paths():
     ]
 
 
+# The JAX bench's PPO rows (bench.py:405-415, run_ppo_row :324-384):
+# SingleRoom at 64 rays x 64 px under ``auto`` (the crossing cast kernel on
+# the card), the mlp trunk of hidden 256 in bfloat16, rollout 64, 4
+# minibatches.  name -> (obs type, envs, epochs, recurrent)
+PPO_ROWS = {
+    "ppo_train_step_mlp_bf16": ("camera_gray", 2048, 2, False),
+    "ppo_train_step_throughput": ("camera_gray_u8", 4096, 1, False),
+    "ppo_train_step_recurrent_gru": ("camera_gray", 2048, 2, True),
+}
+PPO_TIMED_UPDATES = 2
+
+
+def ppo_trainer(row, device, dtype=None, backend="auto"):
+    """The trainer of PPO row ``row`` on ``device`` (compute ``dtype``,
+    bfloat16 by default; ``backend`` the raycast backend)."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.parallel.ppo import PPOConfig, PPOTrainer
+    from raycastworlds_tpu_torch.parallel.ppo_rnn import RecurrentPPOTrainer
+
+    obs, envs, epochs, recurrent = PPO_ROWS[row]
+    cfg = rt.EnvConfig(num_rays=64, height_camera_view_pu=64, obs_type=obs,
+                       raycast_backend=backend)
+    env = rt.Env(rt.SingleRoom(cfg), num_envs=envs, device=device)
+    cls = RecurrentPPOTrainer if recurrent else PPOTrainer
+    return cls(env, PPOConfig(rollout_steps=STEPS, num_epochs=epochs), hidden=256,
+               dtype=dtype or torch.bfloat16, trunk="mlp")
+
+
+def observations_per_update(trainer) -> int:
+    """The observations one train step makes, each one cast: the rollout's
+    first, one per step, and for the feedforward trainer the bootstrap's
+    observation of the final state (the GRU trainer bootstraps from the last
+    step's observation)."""
+    from raycastworlds_tpu_torch.parallel.ppo_rnn import RecurrentPPOTrainer
+
+    return trainer.cfg.rollout_steps + (1 if isinstance(trainer, RecurrentPPOTrainer) else 2)
+
+
+def time_phases(trainer, keep_rollout=False):
+    """Wrap the trainer's two phases: each call appends its milliseconds
+    (host clock between CUDA synchronisations) to ``trainer.phase_ms``
+    ["rollout"] or ["update"]; ``keep_rollout`` keeps the last rollout
+    phase's output as ``trainer.rollout``."""
+    import torch
+
+    trainer.phase_ms = {"rollout": [], "update": []}
+    for phase in ("rollout", "update"):
+        fn = getattr(trainer, f"_{phase}_phase")
+
+        def timed(*args, _fn=fn, _phase=phase):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            torch.cuda.synchronize()
+            trainer.phase_ms[_phase].append((time.perf_counter() - t0) * 1e3)
+            if keep_rollout and _phase == "rollout":
+                trainer.rollout = out
+            return out
+
+        setattr(trainer, f"_{phase}_phase", timed)
+
+
+def ppo_row_phase(row, device) -> dict:
+    """PPO row ``row`` at full width: ``init``, one warm-up ``train_step``
+    and PPO_TIMED_UPDATES timed ones (the timed region ends on the host read
+    of the last metrics).  Every count is set to 0 just before ``init`` and
+    read after the last step: ``crossing_cast`` must have launched once per
+    observation (the reset's, then observations_per_update per step) and
+    no other kernel at all.  The metrics and params must be finite and every
+    param tensor must have moved.  Prints env-steps/s, the two phases' ms
+    and the peak device memory."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+
+    counters = wrappers()
+    trainer = ppo_trainer(row, device)
+    time_phases(trainer)
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in counters.values():
+        fn.launches = 0
+    ts0 = trainer.init(rt.rng.PRNGKey(SEED))
+    ts, metrics = trainer.train_step(ts0)
+    float(metrics["loss"])
+    t0 = time.perf_counter()
+    for _ in range(PPO_TIMED_UPDATES):
+        ts, metrics = trainer.train_step(ts)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    per_update = observations_per_update(trainer)
+    updates = 1 + PPO_TIMED_UPDATES
+    want = {name: (1 + updates * per_update if name == "crossing_cast" else 0)
+            for name in counters}
+    check(launches == want, f"{row}: kernel launches {launches} for 1 + {updates} x "
+                            f"{per_update} observations, expected {want}")
+    check(all(math.isfinite(v) for v in metrics.values()), f"{row}: metrics {metrics}")
+    check(all(bool(torch.isfinite(v).all()) for v in ts.params.values()),
+          f"{row}: params not finite")
+    still = [k for k in ts.params if torch.equal(ts.params[k], ts0.params[k])]
+    check(not still, f"{row}: params that did not move: {still}")
+    check(ts.update_count == updates and ts.opt_state["count"] == updates * (
+        trainer.cfg.num_epochs * trainer.cfg.num_minibatches), f"{row}: update counts")
+    envs, steps = trainer.env.num_envs, trainer.cfg.rollout_steps
+    out = dict(
+        row=row, envs=envs, launches=launches["crossing_cast"],
+        env_steps_per_s=envs * steps * PPO_TIMED_UPDATES / seconds,
+        step_ms=seconds * 1e3 / PPO_TIMED_UPDATES,
+        rollout_ms=trainer.phase_ms["rollout"][-PPO_TIMED_UPDATES:],
+        update_ms=trainer.phase_ms["update"][-PPO_TIMED_UPDATES:],
+        peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+    )
+    print(f"ppo {row}: {envs} envs x {steps} steps, {trainer.env.cfg.obs_type}, "
+          f"{type(trainer).__name__} mlp hidden 256 bfloat16, {trainer.cfg.num_epochs} "
+          f"epochs x {trainer.cfg.num_minibatches} minibatches; crossing_cast launches "
+          f"{out['launches']} (1 + {updates} x {per_update}), no other kernel; loss "
+          f"{metrics['loss']!r}, entropy {metrics['entropy']!r}; "
+          f"{out['env_steps_per_s']:.1f} env-steps/s through the train step "
+          f"({out['step_ms']:.1f} ms per update), rollout ms "
+          + ", ".join(f"{x:.1f}" for x in out["rollout_ms"]) + "; update ms "
+          + ", ".join(f"{x:.1f}" for x in out["update_ms"])
+          + f"; peak device memory {out['peak_gib']:.2f} GiB")
+    return out
+
+
+def ppo_kernel_vs_plain(device, row="ppo_train_step_mlp_bf16") -> float:
+    """One train step of ``row``'s trainer in float32 through the crossing
+    cast kernel (``auto``) and through the plain crossing cast, from the
+    same key: the trajectories (actions, rewards, dones) and the final env
+    states must be identical and the params after the update within 1e-5 of
+    each tensor's largest magnitude.  Returns that largest relative
+    difference."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+
+    runs = {}
+    for backend in ("auto", "crossing"):
+        trainer = ppo_trainer(row, device, torch.float32, backend)
+        time_phases(trainer, keep_rollout=True)
+        ts, metrics = trainer.train_step(trainer.init(rt.rng.PRNGKey(SEED)))
+        traj = trainer.rollout[1]
+        runs[backend] = (ts, traj.action, traj.reward, traj.done,
+                         {k: float(v) for k, v in metrics.items()})
+        del trainer, traj
+    (k_ts, *k_traj, k_m), (p_ts, *p_traj, p_m) = runs["auto"], runs["crossing"]
+    check(all(torch.equal(a, b) for a, b in zip(k_traj, p_traj)),
+          f"{row} float32: the kernel and plain trajectories differ")
+    check(same_state(k_ts.env_state, p_ts.env_state),
+          f"{row} float32: the kernel and plain final env states differ")
+    err = max(float((k_ts.params[k] - p_ts.params[k]).abs().max()
+                    / p_ts.params[k].abs().max()) for k in p_ts.params)
+    check(err <= 1e-5, f"{row} float32: params after the update differ by {err}")
+    print(f"ppo {row} in float32 (TF32 off): kernel (auto) and plain (crossing) train "
+          f"steps from one key: identical actions, rewards, dones "
+          f"({int(k_traj[2].sum())} episode ends) and final env states; params within "
+          f"{err:.3g} relative; loss {k_m['loss']!r} vs {p_m['loss']!r}")
+    return err
+
+
+def ppo_profile(device, row="ppo_train_step_mlp_bf16") -> dict:
+    """One train step of ``row`` (after a warm-up) under torch.profiler:
+    wall ms (host clock to the synchronised end, profiler overhead
+    included), device ms (the sum of the CUDA activities' durations), the
+    device's busy share and the device activities per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import raycastworlds_tpu_torch as rt
+
+    trainer = ppo_trainer(row, device)
+    ts, metrics = trainer.train_step(trainer.init(rt.rng.PRNGKey(SEED)))
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts, metrics = trainer.train_step(ts)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = sum(e.time_range.elapsed_us() for e in device_events) / 1e3
+    check(dev > 0, f"profile {row}: the trace holds no device activity")
+    out = dict(row=row, wall_ms=wall, device_ms=dev, busy=dev / wall,
+               activities=len(device_events))
+    print(f"profile ppo {row}, one train step under torch.profiler: wall {wall:.1f} ms, "
+          f"device {dev:.1f} ms, busy {out['busy']:.1%}, {len(device_events)} device "
+          f"activities (kernels, copies, fills) per step")
+    return out
+
+
+def ppo_layers(device, row="ppo_train_step_mlp_bf16", reps=5) -> dict:
+    """Host ms per call of each layer of ``row``'s feedforward train step
+    at its full width, each alone between CUDA synchronisations (mean of
+    ``reps`` calls after one warm-up): in the rollout, ``Env.step`` (its
+    observation's cast and render included), the policy's forward, the
+    action sampling (``rng.categorical`` and the log-prob) and the key
+    split; after it, GAE over the [64, B] rollout; in the update, one
+    epoch's ``rng.permutation``, one minibatch's loss forward and backward,
+    and one clipped Adam update."""
+    import torch
+    from torch.func import functional_call
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.parallel import ppo
+
+    trainer = ppo_trainer(row, device)
+    ts = trainer.init(rt.rng.PRNGKey(SEED))
+    env, net, cfg = trainer.env, trainer.net, trainer.cfg
+    key = ts.key
+    obs = env.game.observe_batch(ts.env_state)
+    x = ppo.preprocess_obs(env.cfg, obs)
+    with torch.no_grad():
+        logits, _ = functional_call(net, ts.params, (x,))
+    action = rt.rng.categorical(key, logits)
+    n = env.num_envs * cfg.rollout_steps
+    mb = n // cfg.num_minibatches
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    batch = {
+        "obs": obs.repeat(mb // env.num_envs, 1, 1),
+        "action": torch.randint(0, 4, (mb,), device=device, generator=gen),
+        "log_prob": torch.full((mb,), -1.4, device=device),
+        "advantage": torch.randn(mb, device=device, generator=gen),
+        "target": torch.randn(mb, device=device, generator=gen),
+    }
+    t_b = (cfg.rollout_steps, env.num_envs)
+    reward = torch.rand(t_b, device=device, generator=gen)
+    value = torch.randn(t_b, device=device, generator=gen)
+    done = torch.rand(t_b, device=device, generator=gen) < 0.01
+    opt = ppo.Optimizer(ts.params, ts.opt_state, cfg)
+
+    def loss_backward():
+        loss, _ = ppo.ppo_loss(net, env.cfg, cfg, opt.params, batch)
+        return torch.autograd.grad(loss, list(opt.params.values()))
+
+    grads = loss_backward()
+
+    def policy_forward():
+        with torch.no_grad():
+            functional_call(net, ts.params, (ppo.preprocess_obs(env.cfg, obs),))
+
+    layers = {
+        "env_step": lambda: env.step(ts.env_state, action),
+        "policy_forward": policy_forward,
+        "sampling": lambda: ppo.log_prob_of(torch.log_softmax(logits, -1),
+                                            rt.rng.categorical(key, logits)),
+        "key_split": lambda: rt.rng.split(key),
+        "gae": lambda: ppo.compute_gae(reward, value, done, value[0], cfg.gamma,
+                                       cfg.gae_lambda),
+        "permutation": lambda: rt.rng.permutation(key, n),
+        "minibatch_forward_backward": loss_backward,
+        "adam_update": lambda: opt.apply(grads),
+    }
+    out = {}
+    for name, fn in layers.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    print(f"ppo {row} layers, host ms per call between synchronisations ({env.num_envs} "
+          f"envs, minibatch {mb}): " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def trainer_shape_rows(device) -> list:
+    """measure() of the crossing cast at the PPO rows' shapes ([2048, 64]
+    and [4096, 64] on the 8x16 map), on the inputs observe_batch hands it
+    after a reset; launches per env step: 66 observations per 64-step
+    update of the feedforward trainer."""
+    import dataclasses
+
+    import raycastworlds_tpu_torch as rt
+
+    rows = []
+    for row in ("ppo_train_step_mlp_bf16", "ppo_train_step_throughput"):
+        obs, envs, _, _ = PPO_ROWS[row]
+        cfg = rt.EnvConfig(num_rays=64, height_camera_view_pu=64, obs_type=obs)
+        game = rt.SingleRoom(dataclasses.replace(cfg, raycast_backend="auto"))
+        args, kwargs = observed_inputs("crossing_cast", game, envs, device)
+        m = measure("crossing_cast", f"{row}: {cfg.H}x{cfg.W} B={envs} R=64", args, kwargs)
+        m["launches_per_step"] = (STEPS + 2) / STEPS
+        rows.append(m)
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -1006,7 +1317,7 @@ def main() -> None:
     paths = main_paths()
     if times_only:
         ref = reference_rows(device)
-        rows = shape_rows(device, paths)
+        rows = shape_rows(device, paths) + trainer_shape_rows(device)
         print(json.dumps({"times": list(ref.values()) + rows}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1051,7 +1362,18 @@ def main() -> None:
                  4096, device)
 
     # 6. each kernel at every main-path shape, on the path's own inputs
-    rows = shape_rows(device, paths, per_step)
+    rows = shape_rows(device, paths, per_step) + trainer_shape_rows(device)
+
+    # 7. the PPO rows: the trainers through the crossing cast kernel.  A
+    # float32 product runs in full float32 (cuBLAS and cuDNN without TF32),
+    # so that the kernel and plain train steps compare at float32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for row in PPO_ROWS:
+        launches["crossing_cast"] += ppo_row_phase(row, device)["launches"]
+    ppo_kernel_vs_plain(device)
+    ppo_layers(device)
+    ppo_profile(device)
 
     print(json.dumps({"kernels": [
         {

@@ -3,7 +3,7 @@ threefry keys exactly as the JAX package's scanned rollouts draw them."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -19,6 +19,8 @@ class Trajectory(NamedTuple):
     action: torch.Tensor
     reward: torch.Tensor
     done: torch.Tensor
+    log_prob: Optional[torch.Tensor] = None
+    value: Optional[torch.Tensor] = None
 
 
 def rollout_random(
@@ -41,6 +43,29 @@ def rollout_random(
         obs=torch.stack(obs), action=torch.stack(actions),
         reward=torch.stack(rewards), done=torch.stack(dones),
     )
+
+
+def rollout_policy(
+    env: Env,
+    policy_fn: Callable[[torch.Tensor, torch.Tensor], tuple],
+    state: EnvState,
+    key: torch.Tensor,
+    num_steps: int,
+) -> tuple[EnvState, Trajectory]:
+    """T policy steps.  ``policy_fn(obs, key) -> (action, log_prob, value)``
+    (already closed over the params).  The first observation is made from
+    ``state``; each step splits the key as the JAX rollout does and records
+    the observation the action was chosen on."""
+    key = key.to(env.device)
+    obs = env.game.observe_batch(state)
+    recs = []
+    for _ in range(num_steps):
+        key, k_act = rng.split(key).unbind(0)
+        action, log_prob, value = policy_fn(obs, k_act)
+        res = env.step(state, action)
+        recs.append((obs, action, res.reward, res.done, log_prob, value))
+        state, obs = res.state, res.obs
+    return state, Trajectory(*(torch.stack(x) for x in zip(*recs)))
 
 
 def steps_per_second_program(env: Env, num_steps: int):

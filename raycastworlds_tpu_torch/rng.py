@@ -3,10 +3,10 @@
 The counterpart of ``jax.random`` as the engine uses it, reproducing JAX's
 bits exactly (JAX 0.9 with ``jax_threefry_partitionable=True``, its
 default): ``PRNGKey``, ``split``, ``randint``, float32 ``uniform`` and
-``bernoulli``.  All of
-the engine's randomness enters through these draws, with per-env keys, which
-is what makes trajectories reproducible per env and independent of the batch
-size.
+``bernoulli``, and for the trainers ``categorical`` and ``permutation``.
+All of the engine's randomness enters through these draws, with per-env
+keys, which is what makes trajectories reproducible per env and independent
+of the batch size.
 
 A key is two uint32 words held as int64 values in ``[0, 2**32)`` (torch has
 no usable uint32 arithmetic), shape ``[..., 2]``.  Every function accepts a
@@ -144,3 +144,30 @@ def randint(
     offset = ((higher % span) * multiplier) & _MASK
     offset = ((offset + lower % span) & _MASK) % span
     return (lo + offset).to(torch.int32)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis (one key,
+    float32 logits): the argmax of ``logits`` plus Gumbel noise drawn in
+    JAX's "low" mode, ``-log(-log(u))`` with ``u`` uniform in [float32 tiny,
+    1).  The uniform bits are exact; ``log`` may differ from XLA's by an
+    ulp, so only a near tie between two actions can pick another one.
+    Returns int32 of ``logits.shape[:-1]``."""
+    tiny = float(np.finfo(np.float32).tiny)
+    u = uniform(key, tuple(logits.shape), minval=tiny, maxval=1.0)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(gumbel + logits, dim=-1).to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``, exactly: JAX's sort shuffle of
+    ``arange(n)``, ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each splitting
+    the key, drawing 32 bits per element and sorting stably by them.
+    Returns int64[n]."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key).unbind(0)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

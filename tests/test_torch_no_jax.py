@@ -16,6 +16,10 @@ import raycastworlds_tpu_torch.ops.render_fused
 import raycastworlds_tpu_torch.ops.topview
 import raycastworlds_tpu_torch.models.multi_player
 import raycastworlds_tpu_torch.parallel.rollout
+import raycastworlds_tpu_torch.parallel.params
+import raycastworlds_tpu_torch.train
+import raycastworlds_tpu_torch.utils.checkpoint
+from raycastworlds_tpu_torch.parallel import ppo, ppo_rnn
 for backend in ("auto", "fused"):
     cfg = rt.EnvConfig(num_rays=8, height_camera_view_pu=8, raycast_backend=backend)
     env = rt.Env(rt.SingleRoom(cfg), num_envs=2, device="cpu")
@@ -41,8 +45,14 @@ for obs_type in ("camera_u32", "top_u32"):
     env = rt.Env(rt.MultiPlayerRoom(cfg), num_envs=2, device="cpu")
     state, obs = env.reset(rt.rng.PRNGKey(0))
     env.step(state, env.sample_action(rt.rng.PRNGKey(1)))
+env = rt.Env(rt.SingleRoom(rt.EnvConfig(**small, obs_type="camera_gray")), num_envs=2,
+             device="cpu")
+cfg = ppo.PPOConfig(rollout_steps=2, num_epochs=1, num_minibatches=2)
+for trainer in (ppo.PPOTrainer(env, cfg, hidden=8, trunk="mlp"),
+                ppo_rnn.RecurrentPPOTrainer(env, cfg, hidden=8)):
+    trainer.train_step(trainer.init(rt.rng.PRNGKey(0)))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "raycastworlds_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "raycastworlds_tpu"))
 print(",".join(bad))
 """
 

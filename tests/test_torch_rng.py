@@ -84,3 +84,33 @@ def test_unbatched_key():
     np.testing.assert_array_equal(
         np.asarray(jax.random.split(k)), rng.split(kt).numpy().astype(np.uint32)
     )
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 32, 1000, 4097])
+def test_permutation(n):
+    """rng.permutation equals jax.random.permutation exactly (one sort round
+    up to n = 1625, two beyond)."""
+    for k in (_keys_jax()[:8]):
+        want = np.asarray(jax.random.permutation(k, n))
+        got = rng.permutation(torch.from_numpy(np.asarray(k).astype(np.int64)), n)
+        np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_categorical():
+    """rng.categorical draws jax.random.categorical's actions.  The uniform
+    bits are exact and log may differ by an ulp, so an action may differ
+    only at a near tie: the top two Gumbel-perturbed scores within 1e-5."""
+    logits = np.random.default_rng(0).normal(size=(64, 33, 4)).astype(np.float32)
+    want = np.asarray(jax.vmap(jax.random.categorical)(_keys_jax()[:64],
+                                                       jnp.asarray(logits)))
+    got = torch.stack([
+        rng.categorical(k, torch.from_numpy(lg))
+        for k, lg in zip(_keys_torch()[:64], logits)
+    ]).numpy()
+    assert got.dtype == np.int32
+    differ = np.argwhere(got != want)
+    for i, j in differ:
+        u = rng.uniform(_keys_torch()[i], (33, 4), minval=float(np.finfo(np.float32).tiny))
+        score = np.sort((-torch.log(-torch.log(u))).numpy()[j] + logits[i, j])
+        assert score[-1] - score[-2] < 1e-5, (i, j, score)
+    assert len(differ) <= 2, differ
