@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --times-only   # phases 1, 2 and the kernel times
+    python3 chip_smoke.py --mesh-only    # phases 1, 2 and 8
 
 Builds the CUDA kernels from ``raycastworlds_tpu_torch/csrc`` and drives the
 port's main paths, ``Env(Family(Config(raycast_backend=B)))`` with dense or
@@ -100,10 +101,31 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    minibatch's forward and backward, one Adam update); and a torch.profiler
    profile of one feedforward train step (wall and device ms, busy share,
    device activities).
+8. the mesh (``parallel/mesh.py``) at the PPO rows' widths in float32
+   (SingleRoom 64 x 64 gray, mlp hidden 256, rollout 64, 4 minibatches, 2
+   epochs; TF32 off): one rank under NCCL (dp = 1, 2048 envs), the
+   feedforward and GRU trainers with a mesh equal to the same trainers
+   without one (identical rollouts, params within 1e-5); two ranks sharing
+   the card under gloo on CUDA tensors (dp = 2, 4096 global envs): reset +
+   16 steps and the budgeted RandomRoom row (8192 envs, budget 256, every
+   episode truncated at step 8 so that the budget walks across the shard
+   boundary) equal to the one-process card run bit for bit, and one
+   feedforward and one GRU train step whose rollouts are the one-process
+   run's, with the params bit-identical on both ranks; four ranks (dp = 2
+   x mp = 2) take one feedforward step with the rollout cut to 16 steps to
+   fit the time: its rollout equals the dp = 2 run's from the same state,
+   its first minibatch's loss and gathered gradients are within 1e-4 of
+   dp = 2's, and its params after the step's 8 Adam updates are printed
+   beside the dp = 2 step's response to a one-ulp nudge of
+   ``trunk.weight``.  Every rank launches ``crossing_cast`` once per
+   observation and no other kernel.  Prints ms per train step per
+   topology and the collectives' host ms per update (none of it is a
+   scaling figure: the ranks share one card); then ``bench_scaling``'s
+   JSON line at one rank.
 
 The line before the last is the kernels' JSON record: each kernel's
-launches summed over the main paths (and the PPO rows) that route through
-it, its numbers at
+launches summed over the main paths (and the PPO rows and phase 8's runs on
+every rank) that route through it, its numbers at
 the reference-default shape and, under ``shapes``, at every main-path
 shape with its launches per step; the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises: there is no fallback, and a
@@ -1281,13 +1303,380 @@ def trainer_shape_rows(device) -> list:
     return rows
 
 
+# Phase 8: the mesh.  The PPO rows' widths (SingleRoom 64 rays x 64
+# px camera_gray under ``auto``, mlp trunk of hidden 256, rollout 64, 4
+# minibatches, 2 epochs) in float32 with TF32 off, so that topologies
+# compare at float32.
+MESH_ENVS = 4096           # global envs of the two- and four-rank runs
+MESH_ONE_RANK_ENVS = 2048  # the one-rank NCCL run's
+MESH_SHORT_ROLLOUT = 16    # the dp = 2 x mp = 2 step's rollout, cut to fit the time
+MESH_ENV_STEPS = 16
+# the budgeted RandomRoom row (phase 5's 8192 envs, budget 256) with every
+# episode truncated at step 8, so that the budget's 256 resets per step walk
+# across the dp = 2 shard boundary (env 4096) at step 24 of 32
+MESH_BUDGET_STEPS = 32
+
+
+def tf32_off() -> None:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def mesh_env(task, device, mesh=None):
+    """The env of phase 8's env task ``task`` on ``device`` (or the mesh's)."""
+    import raycastworlds_tpu_torch as rt
+
+    if task == "env":
+        cfg = rt.EnvConfig(num_rays=64, height_camera_view_pu=64, obs_type="camera_gray")
+        return rt.Env(rt.SingleRoom(cfg), num_envs=MESH_ENVS,
+                      device=None if mesh else device, mesh=mesh)
+    cfg = rt.RandomRoomConfig(height_tile_map_tu=16, width_tile_map_tu=16, num_rays=256,
+                              height_camera_view_pu=128, obs_type="camera_rgb",
+                              max_episode_steps=8)
+    return rt.Env(rt.RandomRoom(cfg), num_envs=8192, reset_budget=256,
+                  device=None if mesh else device, mesh=mesh)
+
+
+def mesh_env_task(task, device, mesh=None) -> dict:
+    """Reset + the throughput program (``MESH_ENV_STEPS`` steps for
+    ``"env"``, ``MESH_BUDGET_STEPS`` for ``"budget"``), every count set to 0
+    just before the reset: the assembled final state's leaves (numpy), the
+    checksum, the budgeted resets and the launches."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.parallel import mesh as mesh_lib
+    from raycastworlds_tpu_torch.parallel import rollout
+
+    env = mesh_env(task, device, mesh)
+    if env.reset_budget:
+        count_budgeted_resets(env)
+    counters = wrappers()
+    for fn in counters.values():
+        fn.launches = 0
+    state, _ = env.reset(rt.rng.PRNGKey(SEED))
+    steps = MESH_ENV_STEPS if task == "env" else MESH_BUDGET_STEPS
+    state, acc = rollout.steps_per_second_program(env, steps)(state, rt.rng.PRNGKey(SEED + 1))
+    checksum = float(acc)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: (steps + 1 if name == "crossing_cast" else 0) for name in counters}
+    check(launches == want, f"mesh {task}: kernel launches {launches}, expected {want}")
+    resets = getattr(env, "resets", None)
+    if mesh is not None:
+        state = mesh_lib.gather_env_state(state, mesh)
+        if resets is not None:
+            resets = mesh.sum(resets)
+    return dict(state=state.to_numpy(), checksum=checksum, launches=launches["crossing_cast"],
+                resets=None if resets is None else int(resets))
+
+
+def mesh_trainer(task, device, num_envs, mesh=None):
+    """The trainer of phase 8's train task ``task``: "ppo" and "gru" at the
+    PPO rows' widths, "ppo16" the feedforward one with the short rollout."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.parallel.ppo import PPOConfig, PPOTrainer
+    from raycastworlds_tpu_torch.parallel.ppo_rnn import RecurrentPPOTrainer
+
+    cfg = rt.EnvConfig(num_rays=64, height_camera_view_pu=64, obs_type="camera_gray")
+    env = rt.Env(rt.SingleRoom(cfg), num_envs=num_envs, device=None if mesh else device,
+                 mesh=mesh)
+    rollout = MESH_SHORT_ROLLOUT if task == "ppo16" else STEPS
+    cls = RecurrentPPOTrainer if task == "gru" else PPOTrainer
+    return cls(env, PPOConfig(rollout_steps=rollout, num_epochs=2), hidden=256,
+               dtype=torch.float32, trunk="mlp", mesh=mesh)
+
+
+def first_minibatch(first: dict):
+    """Make the feedforward update record, into ``first``, its first
+    minibatch's loss (this rank's part) and its gradients as the optimizer
+    clips them (averaged over dp; this rank's mp shards).  Returns the undo."""
+    from raycastworlds_tpu_torch.parallel import ppo
+
+    clip, loss_fn = ppo.clip_by_global_norm, ppo.ppo_loss
+
+    def clip_first(grads, *args):
+        first.setdefault("grads", [g.detach().clone() for g in grads])
+        return clip(grads, *args)
+
+    def loss_first(*args):
+        out = loss_fn(*args)
+        first.setdefault("loss", out[0].detach().clone())
+        return out
+
+    ppo.clip_by_global_norm, ppo.ppo_loss = clip_first, loss_first
+
+    def undo():
+        ppo.clip_by_global_norm, ppo.ppo_loss = clip, loss_fn
+
+    return undo
+
+
+def mesh_train_task(task, device, num_envs=None, mesh=None, nudge=False) -> dict:
+    """``init`` and one train step of ``task``'s trainer, every count set to
+    0 just before ``init``, then a second step timed (host clock between
+    CUDA synchronisations, with the mesh's collectives and their host ms):
+    the first step's assembled actions, rewards (feedforward), dones and
+    final env state, the assembled params after it (numpy), this rank's
+    params, whether each moved, the metrics and the launches (1 + 2 x the
+    observations of one update).  For "ppo16" also the first minibatch's
+    global loss and assembled gradients; ``nudge`` moves every element of
+    ``trunk.weight`` one float32 ulp up before the step."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.parallel import mesh as mesh_lib
+    from raycastworlds_tpu_torch.parallel.ppo import gather_params
+
+    trainer = mesh_trainer(task, device, num_envs or MESH_ENVS, mesh)
+    time_phases(trainer, keep_rollout=True)
+    counters = wrappers()
+    for fn in counters.values():
+        fn.launches = 0
+    ts0 = trainer.init(rt.rng.PRNGKey(SEED))
+    if nudge:
+        w = ts0.params["trunk.weight"]
+        ts0 = ts0._replace(params=dict(ts0.params, **{
+            "trunk.weight": torch.nextafter(w, torch.full_like(w, math.inf))}))
+    first = {}
+    undo = first_minibatch(first) if task == "ppo16" else (lambda: None)
+    try:
+        ts, metrics = trainer.train_step(ts0)
+    finally:
+        undo()
+    if task == "gru":
+        env_state, _, data, _ = trainer.rollout
+        roll = {"action": data["action"], "done": data["done"]}
+    else:
+        env_state, traj = trainer.rollout[:2]
+        roll = {"action": traj.action, "reward": traj.reward, "done": traj.done}
+    trainer.rollout = None
+    gather = (lambda x: x) if mesh is None else (lambda x: mesh.gather(x, dim=1))  # noqa: E731
+    roll = {k: gather(v).cpu().numpy() for k, v in roll.items()}
+    if mesh is not None:
+        env_state = mesh_lib.gather_env_state(env_state, mesh)
+    params = ts.params if mesh is None or task == "gru" else gather_params(ts.params, mesh)
+    out = dict(
+        roll=roll, env_state=env_state.to_numpy(),
+        params={k: v.cpu().numpy() for k, v in params.items()},
+        local={k: v.cpu().numpy() for k, v in ts.params.items()},
+        still=[k for k in ts.params if torch.equal(ts.params[k], ts0.params[k])],
+        metrics={k: float(v) for k, v in metrics.items()},
+    )
+    if first:
+        grads = dict(zip(ts.params, first["grads"]))
+        loss = first["loss"]
+        if mesh is not None:
+            grads, loss = gather_params(grads, mesh), mesh.mean(loss)
+        out["first_grads"] = {k: v.cpu().numpy() for k, v in grads.items()}
+        out["first_loss"] = float(loss)
+    del ts0, first
+    c0, ms0 = (mesh.collectives, mesh.collective_ms) if mesh is not None else (0, 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, metrics = trainer.train_step(ts)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    if mesh is not None:
+        out["collectives"] = mesh.collectives - c0
+        out["collective_ms"] = mesh.collective_ms - ms0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    per_update = observations_per_update(trainer)
+    want = {name: (1 + 2 * per_update if name == "crossing_cast" else 0) for name in counters}
+    check(launches == want, f"mesh {task}: kernel launches {launches} for 1 + 2 x "
+                            f"{per_update} observations, expected {want}")
+    check(all(math.isfinite(v) for v in out["metrics"].values()),
+          f"mesh {task}: metrics {out['metrics']}")
+    check(not out["still"], f"mesh {task}: params that did not move: {out['still']}")
+    out["launches"] = launches["crossing_cast"]
+    return out
+
+
+def mesh_rank(dp, mp, tasks) -> dict:
+    """One rank of phase 8 (started by ``mesh.launch`` under gloo, every
+    rank on ``cuda:0``): the (dp, mp) mesh, then each task.  Returns each
+    task's result (numpy)."""
+    import torch
+
+    from raycastworlds_tpu_torch import cuda_build
+    from raycastworlds_tpu_torch.parallel import mesh as mesh_lib
+
+    check(not any(m.split(".")[0] == "jax" for m in sys.modules), "a rank imported JAX")
+    tf32_off()
+    cuda_build.load()  # built by the parent before any rank started
+    world = torch.distributed.get_world_size()
+    mesh = mesh_lib.make_mesh(dp=dp, mp=mp, devices=["cuda:0"] * world)
+    out = {"mp_index": mesh.mp_index}
+    for task in tasks:
+        if task in ("env", "budget"):
+            out[task] = mesh_env_task(task, None, mesh)
+        else:
+            out[task] = mesh_train_task(task.split("_")[0], None, MESH_ENVS, mesh,
+                                        nudge=task.endswith("_nudged"))
+    return out
+
+
+def same_leaves(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def params_rel_err(got: dict, want: dict) -> float:
+    """The largest difference of any param over that param's largest
+    magnitude."""
+    return max(float(np.abs(got[k].astype(np.float64) - want[k]).max() / np.abs(want[k]).max())
+               for k in want)
+
+
+def check_rollout(label, got, want) -> None:
+    for k, w in want["roll"].items():
+        diff = np.argwhere(got["roll"][k] != w)
+        check(not diff.size, f"{label}: {k} differs from the one-process run at (t, env) "
+                             f"{diff[:8].tolist()}")
+    check(same_leaves(got["env_state"], want["env_state"]),
+          f"{label}: the final env state differs from the one-process run")
+
+
+def mesh_phase(device) -> int:
+    """Phase 8: the mesh on the one card.  One rank under NCCL (dp = 1):
+    the feedforward and GRU trainers with a mesh against the same trainers
+    without one (2048 envs): identical rollouts, params within 1e-5.  Two
+    ranks under gloo on CUDA tensors (dp = 2, 4096 global envs): reset + 16
+    steps and the budgeted RandomRoom equal to the one-process card run
+    bit for bit; one feedforward and one GRU train step whose rollout is
+    the one-process run's, with replicated params bit-identical across
+    ranks.  Four ranks (dp = 2 x mp = 2): one feedforward step at the short
+    rollout whose gathered params are within 1e-4 of the dp = 2 run's.
+    Every rank launches ``crossing_cast`` once per observation and no other
+    kernel.  Prints each topology's ms per train step and the collectives'
+    host ms per update; returns the crossing-cast launches of every run."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from raycastworlds_tpu_torch.parallel import mesh as mesh_lib
+    from raycastworlds_tpu_torch.parallel.ppo import param_shard_dim
+
+    tf32_off()
+    launches = 0
+    os.makedirs(os.path.dirname(TRACE_DIR), exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="mesh_", dir=os.path.dirname(TRACE_DIR))
+
+    # one rank, NCCL
+    dist.init_process_group("nccl", init_method=f"file://{store_dir}/nccl", world_size=1,
+                            rank=0)
+    try:
+        mesh = mesh_lib.make_mesh(dp=1, devices=[device])
+        for task in ("ppo", "gru"):
+            plain = mesh_train_task(task, device, MESH_ONE_RANK_ENVS)
+            meshed = mesh_train_task(task, device, MESH_ONE_RANK_ENVS, mesh)
+            launches += plain["launches"] + meshed["launches"]
+            check_rollout(f"mesh {task} one rank", meshed, plain)
+            err = params_rel_err(meshed["params"], plain["params"])
+            check(err <= 1e-5, f"mesh {task} one rank: params differ by {err}")
+            check(meshed["collectives"] > 0, f"mesh {task} one rank: no collective ran")
+            print(f"mesh one rank (NCCL, dp=1, {MESH_ONE_RANK_ENVS} envs) {task}: rollout "
+                  f"identical to the trainer without a mesh, params within {err:.3g}; "
+                  f"ms per train step {meshed['step_ms']:.1f} (without a mesh "
+                  f"{plain['step_ms']:.1f}); collectives per update {meshed['collectives']}, "
+                  f"their host ms {meshed['collective_ms']:.2f}; crossing_cast launches "
+                  f"{meshed['launches']}")
+    finally:
+        dist.destroy_process_group()
+
+    # the one-process card runs the ranks are held against
+    ref = {task: mesh_env_task(task, device) for task in ("env", "budget")}
+    ref.update({task: mesh_train_task(task, device) for task in ("ppo", "gru")})
+    launches += sum(r["launches"] for r in ref.values())
+
+    t0 = time.perf_counter()
+    two = mesh_lib.launch(mesh_rank, 2, backend="gloo",
+                          args=(2, 1, ("env", "budget", "ppo", "gru", "ppo16",
+                                       "ppo16_nudged")),
+                          store=f"{store_dir}/two")
+    two_s = time.perf_counter() - t0
+    for task in ("env", "budget"):
+        for r, rank in enumerate(two):
+            check(same_leaves(rank[task]["state"], ref[task]["state"]),
+                  f"mesh two ranks {task}: rank {r}'s assembled state differs from the "
+                  f"one-process run")
+        print(f"mesh two ranks (gloo on CUDA tensors, dp=2) {task}: assembled state equal to "
+              f"the one-process card run; checksum {two[0][task]['checksum']!r} vs "
+              f"{ref[task]['checksum']!r}"
+              + (f"; budgeted resets {two[0][task]['resets']} vs {ref[task]['resets']}"
+                 if task == "budget" else "")
+              + f"; crossing_cast launches per rank {[x[task]['launches'] for x in two]}")
+    for task in ("ppo", "gru"):
+        for r, rank in enumerate(two):
+            check_rollout(f"mesh two ranks {task} rank {r}", rank[task], ref[task])
+        for k in two[0][task]["local"]:
+            check(np.array_equal(two[0][task]["local"][k], two[1][task]["local"][k]),
+                  f"mesh two ranks {task}: param {k} differs between the ranks")
+        print(f"mesh two ranks {task}: rollout identical to the one-process card run, "
+              f"params bit-identical on both ranks, loss {two[0][task]['metrics']['loss']!r}; "
+              f"ms per train step {[round(x[task]['step_ms'], 1) for x in two]} (one process "
+              f"at {MESH_ENVS} envs: {ref[task]['step_ms']:.1f}); collectives "
+              f"per update {two[0][task]['collectives']}, their host ms "
+              f"{[round(x[task]['collective_ms'], 2) for x in two]}; crossing_cast launches "
+              f"per rank {[x[task]['launches'] for x in two]}")
+
+    t0 = time.perf_counter()
+    four = mesh_lib.launch(mesh_rank, 4, backend="gloo", args=(2, 2, ("ppo16",)),
+                           store=f"{store_dir}/four")
+    four_s = time.perf_counter() - t0
+    mp_run, dp_run = four[0]["ppo16"], two[0]["ppo16"]
+    check_rollout("mesh four ranks ppo16", mp_run, dp_run)
+    grad_err = params_rel_err(mp_run["first_grads"], dp_run["first_grads"])
+    loss_err = abs(mp_run["first_loss"] - dp_run["first_loss"]) / abs(dp_run["first_loss"])
+    check(grad_err <= 1e-4 and loss_err <= 1e-4,
+          f"mesh four ranks: the first minibatch's gradients differ from dp = 2 by "
+          f"{grad_err}, its loss by {loss_err}")
+    # after the step's 8 Adam updates: recorded, with the same step's
+    # response to a one-ulp nudge of trunk.weight as the yardstick
+    err = params_rel_err(mp_run["params"], dp_run["params"])
+    nudge_err = params_rel_err(two[0]["ppo16_nudged"]["params"], dp_run["params"])
+    for k in four[0]["ppo16"]["local"]:
+        blocks = {}  # a split param's block per mp index; the others whole
+        for x in four:
+            key = x["mp_index"] if param_shard_dim(k) is not None else 0
+            blocks.setdefault(key, []).append(x["ppo16"]["local"][k])
+        check(all(np.array_equal(v, b[0]) for b in blocks.values() for v in b),
+              f"mesh four ranks: param {k} differs between ranks that hold the same block")
+    print(f"mesh four ranks (gloo, dp=2 x mp=2, rollout cut to {MESH_SHORT_ROLLOUT} steps): "
+          f"rollout identical to the dp=2 run from the same state; the first minibatch's "
+          f"gradients within {grad_err:.3g} of dp=2's, its loss within {loss_err:.3g}; "
+          f"params after the step's {2 * 4} Adam updates within {err:.3g} of dp=2's "
+          f"(dp=2 from trunk.weight nudged one ulp: {nudge_err:.3g}); per-param "
+          + ", ".join(f"{k} {params_rel_err({k: mp_run['params'][k]}, {k: v}):.3g}"
+                      for k, v in dp_run["params"].items())
+          + f"; ms per "
+          f"train step {[round(x['ppo16']['step_ms'], 1) for x in four]} (dp=2 at this "
+          f"rollout {[round(x['ppo16']['step_ms'], 1) for x in two]}); collectives per "
+          f"update {four[0]['ppo16']['collectives']}, their host ms "
+          f"{[round(x['ppo16']['collective_ms'], 2) for x in four]}; crossing_cast launches "
+          f"per rank {[x['ppo16']['launches'] for x in four]}")
+    print(f"mesh launches: two ranks {two_s:.1f} s, four ranks {four_s:.1f} s, process "
+          f"start included (every rank shares the one card: no scaling figure)")
+    for ranks in (two, four):
+        launches += sum(x[t]["launches"] for x in ranks for t in x if t != "mp_index")
+    shutil.rmtree(store_dir)
+    return launches
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     times_only = sys.argv[1:] == ["--times-only"]
-    check(times_only or not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
+    mesh_only = sys.argv[1:] == ["--mesh-only"]
+    check(times_only or mesh_only or not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     sys.path.insert(0, ROOT)
     import raycastworlds_tpu_torch as rt
     from raycastworlds_tpu_torch import cuda_build
@@ -1313,6 +1702,16 @@ def main() -> None:
         for line in f:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {line.strip()}")
+
+    if mesh_only:
+        print(json.dumps({"mesh_launches": {"crossing_cast": mesh_phase(device)}}))
+        from raycastworlds_tpu_torch import bench_scaling
+
+        bench_scaling.main(["--steps", str(STEPS)])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     paths = main_paths()
     if times_only:
@@ -1374,6 +1773,13 @@ def main() -> None:
     ppo_kernel_vs_plain(device)
     ppo_layers(device)
     ppo_profile(device)
+
+    # 8. the mesh: one rank under NCCL, two and four ranks on the one card
+    # under gloo, then bench_scaling at one rank (its JSON line)
+    launches["crossing_cast"] += mesh_phase(device)
+    from raycastworlds_tpu_torch import bench_scaling
+
+    bench_scaling.main(["--steps", str(STEPS)])
 
     print(json.dumps({"kernels": [
         {

@@ -14,6 +14,12 @@ Resets are dense by default: every step computes a fresh reset for every env
 from its own key and selects it where the episode ended, which keeps
 trajectories reproducible per env.  ``reset_budget=K`` resets at most K
 envs per step instead (see :meth:`Env._budgeted_reset`).
+
+With ``mesh=`` (``parallel/mesh.py``) ``num_envs`` stays the global batch
+and this rank holds and steps only its dp slice of the rows
+(``Env.shard``), on the mesh's device: its keys, actions and resets are
+those rows of the one-process run, so the ranks' states together are the
+one-process state bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from . import rng
 from .models.base import Game
+from .parallel import mesh as mesh_lib
 from .state import EnvState, select
 
 
@@ -70,6 +77,7 @@ class Env:
         jit: bool = True,
         donate: bool = False,
         reset_budget: int = 0,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
         """``device=None`` is the CUDA device, and raises where there is
         none: the CPU is only ever asked for, never fallen back to.
@@ -85,8 +93,19 @@ class Env:
         finish beyond the budget freeze (state unchanged, reward 0, done
         False, never truncated) with ``pending_reset`` set until a later
         step's budget reaches them; their episode end was already reported.
+        The budget is global: under a mesh the first K needy envs of the
+        whole batch are reset, wherever they lie.
+
+        ``mesh``: this rank steps rows ``shard = (start, stop)`` of the
+        ``num_envs`` (``local_envs`` of them) on ``mesh.device``; a
+        ``device`` that names another raises.
         """
         del jit, donate
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -97,6 +116,8 @@ class Env:
         self.game = game
         self.cfg = game.cfg
         self.num_envs = num_envs
+        self.shard = None if mesh is None else mesh_lib.shard_range(num_envs, mesh)
+        self.local_envs = num_envs if mesh is None else self.shard[1] - self.shard[0]
         self.auto_reset = auto_reset
         self.reset_budget = min(reset_budget, num_envs)
         self.device = torch.device(device)
@@ -119,8 +140,9 @@ class Env:
     # -- public ---------------------------------------------------------
 
     def reset(self, key: torch.Tensor) -> Tuple[EnvState, torch.Tensor]:
-        """Reset all envs from one key (split into one key per env)."""
-        keys = rng.split(key.to(self.device), self.num_envs)
+        """Reset all envs from one key (split into one key per env; under a
+        mesh, this rank's rows of those keys)."""
+        keys = rng.split(key.to(self.device), self.num_envs, self.shard)
         state = self.game.reset_batch(keys)
         return state, self.game.observe_batch(state)
 
@@ -175,11 +197,22 @@ class Env:
         key, as in the JAX package, and no env reads them.  Each selected env
         then takes its own slot's fresh row: a gather and a per-env select,
         with no scatter and no host read.
+
+        Under a mesh the needy envs of the lower dp ranks come first: one
+        all-reduce of the ranks' needy counts gives the global slots this
+        rank's count starts after, and the budget left for its rows.  A
+        rank still resets at most ``reset_budget`` rows.
         """
         k = self.reset_budget
         cnt = torch.cumsum(needs.to(torch.int32), dim=0)
         slot = cnt - 1
-        sel = needs & (slot < k)
+        left = k
+        if self.mesh is not None:
+            counts = torch.zeros(self.mesh.dp, dtype=torch.int64, device=cnt.device)
+            counts[self.mesh.dp_index] = cnt[-1]
+            self.mesh.all_reduce(counts)
+            left = k - counts[:self.mesh.dp_index].sum()
+        sel = needs & (slot < left)
         slots = torch.arange(k, dtype=torch.int32, device=cnt.device)
         idx = torch.searchsorted(cnt, slots, right=True)
         idx = torch.where(idx < needs.shape[0], idx, 0)
@@ -188,8 +221,10 @@ class Env:
         return select(sel, rows, stepped).replace(pending_reset=needs & ~sel)
 
     def sample_action(self, key: torch.Tensor) -> torch.Tensor:
+        """Uniform actions for the envs (this rank's rows under a mesh)."""
         shape = (self.num_envs,) + self.game.action_shape
-        return rng.randint(key.to(self.device), shape, 0, self.game.num_actions)
+        return rng.randint(key.to(self.device), shape, 0, self.game.num_actions,
+                           self.shard)
 
     def top_view(self, state: EnvState) -> torch.Tensor:
         """Batched uint32 top views (the debug rendering)."""

@@ -1,1 +1,1 @@
-"""Rollout drivers of the port."""
+"""Rollout drivers, the PPO trainers and the (dp, mp) mesh of the port."""

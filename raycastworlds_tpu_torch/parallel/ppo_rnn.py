@@ -8,14 +8,18 @@ replay the GRU); each one replays its sequences from the stored
 rollout-start hidden state under the current params, then takes the
 clipped-PPO step.  Hidden states pass between train steps detached.
 
-Single-agent, one device: the JAX trainer's ``mesh`` (dp-sharded env
-state, hidden carry and rollout) comes with the port of
-``parallel/mesh.py``.
+Single-agent.  ``mesh=`` (the env's) is data-parallel only, as in JAX:
+each rank holds its rows of the env state and of the hidden carry, draws
+its rows of every action, permutes its own envs with one replicated
+permutation (``permutation(kp, B/dp)``, the dp-local shuffle) and
+normalizes advantages over the global minibatch; gradients and metrics are
+all-reduced over dp.  The params and Adam state are replicated on every
+rank, mp ranks included.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +29,7 @@ from torch.func import functional_call
 from .. import rng
 from ..env import Env
 from ..state import EnvState
+from .mesh import Mesh
 from .ppo import (
     Dense,
     ImageTrunk,
@@ -33,14 +38,17 @@ from .ppo import (
     PPOConfig,
     adam_init,
     compute_gae,
+    dp_mean,
     feature_shape,
     init_params,
     log_prob_of,
     mean_metrics,
     policy_loss_terms,
     preprocess_obs,
+    shard_train_state,
     success_metrics,
     train_loop,
+    trainer_mesh,
 )
 
 
@@ -105,17 +113,22 @@ class RnnTrainState(NamedTuple):
 
 class RecurrentPPOTrainer:
     """Owns the GRU network and builds the train step; runs on
-    ``env.device``."""
+    ``env.device`` (over the ranks of the env's ``mesh``, dp only)."""
 
     def __init__(self, env: Env, ppo_cfg: PPOConfig = PPOConfig(), hidden: int = 256,
-                 dtype=torch.float32, trunk: str = "conv"):
+                 dtype=torch.float32, trunk: str = "conv", mesh: Optional[Mesh] = None):
         if env.game.action_shape != ():
             raise ValueError(
                 "RecurrentPPOTrainer is single-agent; fold the player axis "
                 "with the feedforward PPOTrainer for MultiPlayerRoom"
             )
-        if env.num_envs % ppo_cfg.num_minibatches:
-            raise ValueError("num_envs must divide by num_minibatches")
+        self.mesh = trainer_mesh(env, mesh)
+        # Env(mesh=...) has already refused a num_envs that dp does not divide
+        if env.local_envs % ppo_cfg.num_minibatches:
+            raise ValueError(
+                "per-shard env count (num_envs / dp) must divide by "
+                "num_minibatches"
+            )
         self.env = env
         self.cfg = ppo_cfg
         self.hidden = hidden
@@ -127,20 +140,24 @@ class RecurrentPPOTrainer:
         k_env, k_net, k_run = rng.split(key.to(dev), 3).unbind(0)
         env_state, _ = self.env.reset(k_env)
         params = init_params(self.net, k_net, dev)
-        h0 = torch.zeros((self.env.num_envs, self.hidden), device=dev)
+        h0 = torch.zeros((self.env.local_envs, self.hidden), device=dev)
         return RnnTrainState(params, adam_init(params), env_state, h0, k_run, 0)
+
+    def shard(self, ts: RnnTrainState) -> RnnTrainState:
+        """This rank's piece of a global train state (``shard_train_state``)."""
+        return shard_train_state(ts, self.mesh)
 
     def _rollout_phase(self, ts: RnnTrainState, k_roll: torch.Tensor):
         """Rollout with the hidden carry, one key per step split from
         ``k_roll``, then the bootstrap value and GAE.  Returns (env_state,
         last hidden, data [T, B, ...], aux metrics)."""
-        env, cfg, net = self.env, self.cfg, self.net
+        env, cfg, net, mesh = self.env, self.cfg, self.net, self.mesh
         state, obs, h = ts.env_state, env.game.observe_batch(ts.env_state), ts.hidden
         recs = []
         for k in rng.split(k_roll, cfg.rollout_steps).unbind(0):
             logits, value, h2 = functional_call(
                 net, ts.params, (preprocess_obs(env.cfg, obs), h))
-            action = rng.categorical(k, logits)
+            action = rng.categorical(k, logits, env.shard)
             res = env.step(state, action)
             # episode boundary: the next step starts a fresh episode, h = 0
             h = torch.where(res.done[:, None], 0.0, h2)
@@ -154,7 +171,8 @@ class RecurrentPPOTrainer:
                                   cfg.gae_lambda)
         data = {"obs": obs_t, "action": act_t, "log_prob": lp_t, "advantage": adv,
                 "target": target, "done": done_t}
-        aux = {"reward_per_step": rew_t.mean(), **success_metrics(rew_t, done_t)}
+        aux = {"reward_per_step": dp_mean(rew_t.mean(), mesh),
+               **success_metrics(rew_t, done_t, mesh)}
         return state, h, data, aux
 
     def _replay_loss(self, params: Params, batch):
@@ -167,18 +185,21 @@ class RecurrentPPOTrainer:
             h = torch.where(d[:, None], 0.0, h2)
             logits.append(lg)
             values.append(v)
-        return policy_loss_terms(self.cfg, torch.stack(logits), torch.stack(values), batch)
+        return policy_loss_terms(self.cfg, torch.stack(logits), torch.stack(values), batch,
+                                 self.mesh)
 
     def _update_phase(self, params, opt_state, k_perm, hidden, data):
         """Epochs x env-axis minibatches; each epoch permutes the envs once
-        (``permutation`` over B).  Returns (params, opt_state, metrics)."""
+        (``permutation`` over B, or over this rank's B/dp under a mesh).
+        Returns (params, opt_state, metrics)."""
         cfg = self.cfg
-        mbl = self.env.num_envs // cfg.num_minibatches
-        opt = Optimizer(params, opt_state, cfg)
+        bl = self.env.local_envs
+        mbl = bl // cfg.num_minibatches
+        opt = Optimizer(params, opt_state, cfg, self.mesh)
         metrics, key = [], k_perm
         for _ in range(cfg.num_epochs):
             key, kp = rng.split(key).unbind(0)
-            perm = rng.permutation(kp, self.env.num_envs)
+            perm = rng.permutation(kp, bl)
             for i in range(cfg.num_minibatches):
                 envs = perm[i * mbl:(i + 1) * mbl]
                 batch = {k: v[:, envs] for k, v in data.items()}
@@ -186,7 +207,7 @@ class RecurrentPPOTrainer:
                 loss, m = self._replay_loss(opt.params, batch)
                 opt.step(loss)
                 metrics.append(m)
-        return (*opt.state(), mean_metrics(metrics))
+        return (*opt.state(), mean_metrics(metrics, self.mesh))
 
     def train_step(self, ts: RnnTrainState):
         key, k_roll, k_perm = rng.split(ts.key, 3).unbind(0)

@@ -1,5 +1,10 @@
 """Rollout drivers: Python loops over ``Env.step``, with actions drawn from
-threefry keys exactly as the JAX package's scanned rollouts draw them."""
+threefry keys exactly as the JAX package's scanned rollouts draw them.
+
+Under an ``Env(mesh=...)`` each rank draws and steps its own rows of the
+global batch (``Env.shard``), and the throughput program's checksum is
+summed over the dp ranks, so every rank returns the global value.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +15,7 @@ import torch
 from .. import rng
 from ..env import Env
 from ..state import EnvState
+from .mesh import DATA_AXIS
 
 
 class Trajectory(NamedTuple):
@@ -32,7 +38,7 @@ def rollout_random(
     obs, actions, rewards, dones = [], [], [], []
     for _ in range(num_steps):
         key, k_act = rng.split(key).unbind(0)
-        a = rng.randint(k_act, shape, 0, env.game.num_actions)
+        a = rng.randint(k_act, shape, 0, env.game.num_actions, env.shard)
         res = env.step(state, a)
         state = res.state
         obs.append(res.obs)
@@ -74,14 +80,16 @@ def steps_per_second_program(env: Env, num_steps: int):
     device (float32, or float64 where the observations or rewards are
     float64), so the images are produced but never leave it.  Returns
     ``(final_state, checksum)``; the caller's host read of the checksum
-    ends a timed region."""
+    ends a timed region.  Under a mesh the checksum is all-reduced over dp
+    (one collective at the end), in another order of summation than one
+    process's."""
 
     def run(state: EnvState, key: torch.Tensor):
         # All T*B actions in one threefry draw, as the JAX program does.
         actions = rng.randint(
             key.to(env.device),
             (num_steps, env.num_envs) + env.game.action_shape,
-            0, env.game.num_actions,
+            0, env.game.num_actions, env.shard, axis=1,
         )
         acc = torch.zeros((), dtype=torch.float32, device=env.device)
         for a in actions:
@@ -96,6 +104,8 @@ def steps_per_second_program(env: Env, num_steps: int):
                 chk = obs.to(torch.float32).sum()
             acc = acc + chk + res.reward.sum()
             state = res.state
+        if env.mesh is not None:
+            env.mesh.all_reduce(acc, DATA_AXIS)
         return state, acc
 
     return run

@@ -13,11 +13,18 @@ no usable uint32 arithmetic), shape ``[..., 2]``.  Every function accepts a
 batch of keys: the leading dimensions of ``key`` stay leading dimensions of
 the result, and each key draws exactly what ``jax.random`` would draw for it
 alone.  Everything here is ordinary tensor arithmetic and runs on any device.
+
+Each draw takes ``shard=(start, stop)`` (and ``axis``, 0 by default): it
+then returns only the elements of the global ``shape`` whose index along
+``axis`` lies in ``[start, stop)``, exactly that slice of the full draw.
+With partitionable threefry an element's bits depend only on the key and
+its row-major position in the global shape, so a data-parallel rank draws
+its own rows, and its work does not grow with the number of ranks.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,36 +62,59 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([0, seed & _MASK], dtype=torch.int64, device=device)
 
 
-def _counts(shape: Tuple[int, ...], device) -> torch.Tensor:
+Shard = Optional[Tuple[int, int]]
+
+
+def _counts(shape: Tuple[int, ...], device, shard: Shard = None, axis: int = 0) -> torch.Tensor:
     """Row-major iota over ``shape``: the counter words of one draw (the
-    high counter word is 0 for every size this engine draws)."""
-    n = 1
-    for s in shape:
-        n *= s
-    return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    high counter word is 0 for every size this engine draws).  With
+    ``shard=(start, stop)``, only the elements whose index along ``axis``
+    lies in ``[start, stop)``: that slice of the iota."""
+    if shard is None:
+        n = 1
+        for s in shape:
+            n *= s
+        return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    start, stop = shard
+    if not 0 <= start <= stop <= shape[axis]:
+        raise ValueError(f"shard {shard} outside axis {axis} of {shape}")
+    local = list(shape)
+    local[axis] = stop - start
+    counts = torch.zeros(local, dtype=torch.int64, device=device)
+    stride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        iota = torch.arange(local[d], dtype=torch.int64, device=device)
+        if d == axis:
+            iota = iota + start
+        counts = counts + (iota * stride).reshape([-1 if i == d else 1 for i in range(len(shape))])
+        stride *= shape[d]
+    return counts
 
 
-def _hash(key: torch.Tensor, shape: Tuple[int, ...]):
-    """Both output words of threefry over the iota of ``shape``, per key:
-    each result is ``[*key.shape[:-1], *shape]``."""
+def _hash(key: torch.Tensor, shape: Tuple[int, ...], shard: Shard = None, axis: int = 0):
+    """Both output words of threefry over the iota of ``shape`` (or its
+    ``shard``), per key: each result is ``[*key.shape[:-1], *local shape]``."""
     lead = key.shape[:-1]
-    expand = (...,) + (None,) * len(shape)
+    counts = _counts(shape, key.device, shard, axis)
+    expand = (...,) + (None,) * counts.dim()
     k0 = key[..., 0][expand]
     k1 = key[..., 1][expand]
-    counts = _counts(shape, key.device).reshape((1,) * len(lead) + shape)
+    counts = counts.reshape((1,) * len(lead) + tuple(counts.shape))
     return threefry2x32(k0, k1, torch.zeros_like(counts), counts)
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``[..., 2]`` keys -> ``[..., num, 2]``."""
-    b0, b1 = _hash(key, (num,))
+def split(key: torch.Tensor, num: int = 2, shard: Shard = None) -> torch.Tensor:
+    """``jax.random.split``: ``[..., 2]`` keys -> ``[..., num, 2]``; with
+    ``shard=(start, stop)`` only those of the ``num`` keys."""
+    b0, b1 = _hash(key, (num,), shard)
     return torch.stack([b0, b1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape: Sequence[int], shard: Shard = None,
+                axis: int = 0) -> torch.Tensor:
     """32 random bits per element (int64 in ``[0, 2**32)``), shape
-    ``[*key.shape[:-1], *shape]``."""
-    b0, b1 = _hash(key, tuple(shape))
+    ``[*key.shape[:-1], *shape]`` (``shard``: see the module docstring)."""
+    b0, b1 = _hash(key, tuple(shape), shard, axis)
     return b0 ^ b1
 
 
@@ -93,10 +123,12 @@ def uniform(
     shape: Sequence[int] = (),
     minval: float = 0.0,
     maxval: float = 1.0,
+    shard: Shard = None,
+    axis: int = 0,
 ) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
     23 bits fill the mantissa of a float in [1, 2), minus 1, then scaled."""
-    bits = random_bits(key, shape)
+    bits = random_bits(key, shape, shard, axis)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
@@ -104,11 +136,12 @@ def uniform(
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
-def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int], shard: Shard = None,
+              axis: int = 0) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
     ``uniform(key, shape) < p`` with ``p`` rounded to float32 first, as JAX
     compares against the weakly typed scalar."""
-    u = uniform(key, shape)
+    u = uniform(key, shape, shard=shard, axis=axis)
     return u < torch.tensor(np.float32(p), device=key.device)
 
 
@@ -116,12 +149,14 @@ IntBound = Union[int, Sequence[int]]
 
 
 def randint(
-    key: torch.Tensor, shape: Sequence[int], minval: IntBound, maxval: IntBound
+    key: torch.Tensor, shape: Sequence[int], minval: IntBound, maxval: IntBound,
+    shard: Shard = None, axis: int = 0,
 ) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, dtype=int32)``.
 
     ``minval``/``maxval`` are ints or int sequences that broadcast against
-    ``shape`` (as in the goal draw, bounds ``[1, 1]`` to ``[H-1, W-1]``).
+    ``shape`` (as in the goal draw, bounds ``[1, 1]`` to ``[H-1, W-1]``;
+    against the slice under ``shard``).
     JAX draws two 32-bit words per element from ``split(key)`` and reduces
     them modulo the span with a double-width remainder identity.
     """
@@ -135,8 +170,8 @@ def randint(
         ):
             raise ValueError("randint bounds must fit in int32")
     k = split(key, 2)
-    higher = random_bits(k[..., 0, :], shape)
-    lower = random_bits(k[..., 1, :], shape)
+    higher = random_bits(k[..., 0, :], shape, shard, axis)
+    lower = random_bits(k[..., 1, :], shape, shard, axis)
     span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _MASK)
     # uint32 arithmetic: every product wraps at 2**32, as in JAX.
     multiplier = (2**16) % span
@@ -146,15 +181,20 @@ def randint(
     return (lo + offset).to(torch.int32)
 
 
-def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical(key: torch.Tensor, logits: torch.Tensor, shard: Shard = None) -> torch.Tensor:
     """``jax.random.categorical(key, logits)`` over the last axis (one key,
     float32 logits): the argmax of ``logits`` plus Gumbel noise drawn in
     JAX's "low" mode, ``-log(-log(u))`` with ``u`` uniform in [float32 tiny,
     1).  The uniform bits are exact; ``log`` may differ from XLA's by an
     ulp, so only a near tie between two actions can pick another one.
+    ``shard=(start, stop)``: ``logits`` are those rows (axis 0) of the
+    global logits, and the noise is that slice of the global draw.
     Returns int32 of ``logits.shape[:-1]``."""
     tiny = float(np.finfo(np.float32).tiny)
-    u = uniform(key, tuple(logits.shape), minval=tiny, maxval=1.0)
+    shape = tuple(logits.shape)
+    if shard is not None:
+        shape = (shard[1],) + shape[1:]
+    u = uniform(key, shape, minval=tiny, maxval=1.0, shard=shard)
     gumbel = -torch.log(-torch.log(u))
     return torch.argmax(gumbel + logits, dim=-1).to(torch.int32)
 

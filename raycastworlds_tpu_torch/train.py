@@ -2,11 +2,15 @@
 
     python -m raycastworlds_tpu_torch.train --num-envs 1024 --updates 200
     python -m raycastworlds_tpu_torch.train --device cpu --num-envs 8 --updates 2
+    torchrun --nproc-per-node 4 -m raycastworlds_tpu_torch.train --mesh --num-envs 4096
 
 The port of the JAX package's ``examples/train_ppo.py``: the same flags and
 the same JSON line per logged update (every 10 updates and the last), less
-``--mesh``/``--backend``, plus ``--device`` (the CUDA device by default;
-there is no fallback to the CPU).
+``--backend``, plus ``--device`` (the CUDA device by default; there is no
+fallback to the CPU).  ``--mesh`` trains data-parallel over every rank that
+torchrun started (dp = the world size; ``--num-envs`` is the global batch):
+one card per rank under NCCL by default, or every rank on ``--device``
+under gloo (``cpu``, or one shared card); only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from . import (
     SingleRoom,
     rng,
 )
+from .parallel import mesh as mesh_lib
 from .parallel.ppo import PPOConfig, PPOTrainer
 from .parallel.ppo_rnn import RecurrentPPOTrainer
 
@@ -64,11 +69,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="GRU actor-critic (parallel/ppo_rnn.py) for "
                         "partially observable worlds")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: the CUDA device)")
+                   help="torch device (default: the CUDA device; with --mesh, "
+                        "every rank's)")
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel over every rank torchrun started (dp)")
     return p.parse_args(argv)
 
 
-def make_trainer(args: argparse.Namespace):
+def make_mesh(args: argparse.Namespace):
+    """The dp mesh of ``--mesh`` over the process group (joined from
+    torchrun's environment where there is none yet), or None."""
+    if not args.mesh:
+        return None
+    mesh_lib.initialize_distributed(backend="nccl" if args.device is None else "gloo")
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    return mesh_lib.make_mesh(devices=None if args.device is None else [args.device] * world)
+
+
+def make_trainer(args: argparse.Namespace, mesh=None):
     kw = dict(num_rays=args.num_rays, height_camera_view_pu=args.height_px,
               obs_type=args.obs, max_episode_steps=args.max_episode_steps)
     if args.map_h:
@@ -86,7 +104,7 @@ def make_trainer(args: argparse.Namespace):
         game = LockedRoom(LockedRoomConfig(**kw))
     else:
         game = Maze(MazeConfig(**kw))
-    env = Env(game, num_envs=args.num_envs, device=args.device)
+    env = Env(game, num_envs=args.num_envs, device=None if mesh else args.device, mesh=mesh)
     ppo_cfg = PPOConfig(rollout_steps=args.rollout_steps, lr=args.lr)
     if args.epochs:
         ppo_cfg = ppo_cfg._replace(num_epochs=args.epochs)
@@ -97,10 +115,17 @@ def make_trainer(args: argparse.Namespace):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    trainer = make_trainer(args)
-    _, history = trainer.train(rng.PRNGKey(args.seed), args.updates, log_every=10)
-    for h in history:
-        print(json.dumps(h))
+    joins = args.mesh and not torch.distributed.is_initialized()
+    mesh = make_mesh(args)
+    try:
+        trainer = make_trainer(args, mesh)
+        _, history = trainer.train(rng.PRNGKey(args.seed), args.updates, log_every=10)
+    finally:
+        if joins and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if mesh is None or mesh.rank == 0:
+        for h in history:
+            print(json.dumps(h))
 
 
 if __name__ == "__main__":

@@ -9,6 +9,11 @@ numbers; each leaf is stored under its path (``params/trunk.weight``,
 package's dtypes).  The env's per-env threefry keys and the trainer's key
 are part of the state, so a restored trainer continues exactly as an
 uninterrupted one.
+
+Under a mesh (``parallel/mesh.py``) ``save(..., mesh=)`` gathers every
+rank's rows and mp shards and rank 0 writes one file with the leaves and
+values of a one-process save; ``restore(..., mesh=)`` gives each rank its
+rows and shards of such a file, whichever topology wrote it.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as mesh_lib
+from ..parallel.ppo import gather_train_state, shard_train_state
 from ..state import EnvState
 
 
@@ -41,16 +48,44 @@ def _flatten(tree: Any, path: str, out: Dict[str, np.ndarray]) -> None:
         raise TypeError(f"cannot checkpoint {type(tree).__name__} at {path!r}")
 
 
-def save(path: str, train_state: Any, metadata: Optional[dict] = None) -> str:
+def _is_train_state(tree: Any) -> bool:
+    return isinstance(tree, tuple) and {"params", "env_state"} <= set(getattr(tree, "_fields", ()))
+
+
+def _gather(tree: Any, mesh: mesh_lib.Mesh) -> Any:
+    """The global tree of a rank's env state or trainer state (a
+    collective); other trees are held whole by every rank already."""
+    if isinstance(tree, EnvState):
+        return mesh_lib.gather_env_state(tree, mesh)
+    return gather_train_state(tree, mesh) if _is_train_state(tree) else tree
+
+
+def _shard(tree: Any, mesh: mesh_lib.Mesh) -> Any:
+    if isinstance(tree, EnvState):
+        return mesh_lib.shard_env_state(tree, mesh)
+    return shard_train_state(tree, mesh) if _is_train_state(tree) else tree
+
+
+def save(path: str, train_state: Any, metadata: Optional[dict] = None,
+         mesh: Optional[mesh_lib.Mesh] = None) -> str:
     """Save ``train_state`` (a trainer state, or any tree of the kinds
     above) to ``path`` (``.npz`` appended if missing), with ``metadata`` as
-    JSON under ``__meta__``.  Returns the path written."""
-    arrays: Dict[str, np.ndarray] = {}
-    _flatten(train_state, "", arrays)
+    JSON under ``__meta__``.  Returns the path written.  Under ``mesh``
+    every rank calls it with its piece; rank 0 writes the global state, and
+    every rank returns once the file is there."""
     if not path.endswith(".npz"):
         path = path + ".npz"
+    if mesh is not None:
+        train_state = _gather(train_state, mesh)
+        if mesh.rank != 0:
+            mesh.barrier()
+            return path
+    arrays: Dict[str, np.ndarray] = {}
+    _flatten(train_state, "", arrays)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, __meta__=json.dumps(metadata or {}), **arrays)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 
@@ -73,10 +108,14 @@ def _unflatten(target: Any, path: str, data) -> Any:
     return type(target)(arr)
 
 
-def restore(path: str, target: Any) -> Any:
+def restore(path: str, target: Any, mesh: Optional[mesh_lib.Mesh] = None) -> Any:
     """Restore a checkpoint into the structure of ``target`` (e.g. a freshly
     initialized trainer state): tensors on the target's devices and in its
-    dtypes.  Raises if the checkpoint holds other leaves or shapes."""
+    dtypes.  Raises if the checkpoint holds other leaves or shapes.  Under
+    ``mesh`` every rank calls it with its own piece as ``target`` and gets
+    its rows and shards of the global state in the file."""
+    if mesh is not None:
+        return _shard(restore(path, _gather(target, mesh)), mesh)
     if not path.endswith(".npz"):
         path = path + ".npz"
     want: Dict[str, np.ndarray] = {}

@@ -19,7 +19,8 @@ import raycastworlds_tpu_torch.parallel.rollout
 import raycastworlds_tpu_torch.parallel.params
 import raycastworlds_tpu_torch.train
 import raycastworlds_tpu_torch.utils.checkpoint
-from raycastworlds_tpu_torch.parallel import ppo, ppo_rnn
+from raycastworlds_tpu_torch import bench_scaling, dryrun
+from raycastworlds_tpu_torch.parallel import mesh as mesh_lib, ppo, ppo_rnn
 for backend in ("auto", "fused"):
     cfg = rt.EnvConfig(num_rays=8, height_camera_view_pu=8, raycast_backend=backend)
     env = rt.Env(rt.SingleRoom(cfg), num_envs=2, device="cpu")
@@ -51,6 +52,14 @@ cfg = ppo.PPOConfig(rollout_steps=2, num_epochs=1, num_minibatches=2)
 for trainer in (ppo.PPOTrainer(env, cfg, hidden=8, trunk="mlp"),
                 ppo_rnn.RecurrentPPOTrainer(env, cfg, hidden=8)):
     trainer.train_step(trainer.init(rt.rng.PRNGKey(0)))
+mesh = mesh_lib.make_mesh(devices=["cpu"])
+env = rt.Env(rt.SingleRoom(rt.EnvConfig(**small, obs_type="camera_gray")), num_envs=2,
+             mesh=mesh, reset_budget=1)
+for trainer in (ppo.PPOTrainer(env, cfg, hidden=8, trunk="mlp", mesh=mesh),
+                ppo_rnn.RecurrentPPOTrainer(env, cfg, hidden=8, mesh=mesh)):
+    trainer.train_step(trainer.init(rt.rng.PRNGKey(0)))
+dryrun.dryrun_multichip(1, ["cpu"], num_rays=8, height_px=8)
+bench_scaling.build_env(num_envs=2, num_rays=8, height_px=8, device="cpu", mesh=mesh)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "raycastworlds_tpu"))
 print(",".join(bad))
