@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --times-only   # phases 1, 2 and the kernel times
     python3 chip_smoke.py --mesh-only    # phases 1, 2 and 8
+    python3 chip_smoke.py --adapters-only  # phases 1, 2 and 9
 
 Builds the CUDA kernels from ``raycastworlds_tpu_torch/csrc`` and drives the
 port's main paths, ``Env(Family(Config(raycast_backend=B)))`` with dense or
@@ -82,7 +83,8 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    bound (the larger of the bytes read and written over 3.35 TB/s and the
    float operations this data needs over 67 TFLOP/s) and the share of
    bound (bound / device time); the crossing cast also at the PPO rows'
-   shapes ([2048, 64] and [4096, 64]);
+   shapes ([2048, 64] and [4096, 64]) and at phase 9's adapter shapes
+   (the flagship [4096, 64] and the single env's [1, 512]);
 7. the JAX bench's three PPO rows at full width (SingleRoom 64 rays x 64
    px under ``auto``, mlp trunk of hidden 256 in bfloat16, rollout 64, 4
    minibatches): ``ppo_train_step_mlp_bf16`` (camera_gray, 2048 envs, 2
@@ -122,10 +124,31 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    topology and the collectives' host ms per update (none of it is a
    scaling figure: the ranks share one card); then ``bench_scaling``'s
    JSON line at one rank.
+9. the adapters and tools, each run counted (``crossing_cast`` once per
+   observation or view made, no other kernel): (a) ``GymVectorAdapter`` at
+   flagship_single_room_4096 (SingleRoom 64 x 64 camera_u32 ``auto``, 4096
+   envs, reset + 64 steps), every returned array equal to ``Env.reset`` /
+   ``Env.step`` on the card with the same keys and its first 256 envs x 16
+   steps to a CPU adapter, again with ``final_observation``; env-steps/s
+   through the adapter beside ``steps_per_second_program``'s, host-copy ms
+   per step, launches per step; (b) ``GymAdapter`` at the reference default
+   (1 env, 100 steps with renders, re-seeded resets) equal to the CPU's, ms
+   per step; (c) ``FrameStack(4)`` over gray_u8 and
+   ``ObsTransform(downsample2x)`` over u32, 4096 envs x 32 steps, the first
+   256 envs equal to the CPU's; (d) ``record_episode`` camera and top views
+   of the reference default and MultiPlayerRoom, frames and GIF bytes
+   equal to the CPU's; (e) ``WebPlaySession`` PNG frames and statuses
+   through a key script equal to the CPU's, ms per key; (f)
+   ``validate_state`` and ``checked`` on (a)'s final state, a NaN state
+   throwing; (g) ``examples/profile_step`` at the flagship row (its JSON
+   line: top kernels, wall and device ms, busy share, the resets' and
+   threefry's share); (h) ``examples/profile_ppo`` at
+   ppo_train_step_mlp_bf16 (its JSON line).  The profiler must see
+   ``crossing_cast_kernel`` in (a), (c) and (g).
 
 The line before the last is the kernels' JSON record: each kernel's
-launches summed over the main paths (and the PPO rows and phase 8's runs on
-every rank) that route through it, its numbers at
+launches summed over the main paths (and the PPO rows, phase 8's runs on
+every rank and phase 9's runs) that route through it, its numbers at
 the reference-default shape and, under ``shapes``, at every main-path
 shape with its launches per step; the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises: there is no fallback, and a
@@ -1120,6 +1143,7 @@ def ppo_row_phase(row, device) -> dict:
     envs, steps = trainer.env.num_envs, trainer.cfg.rollout_steps
     out = dict(
         row=row, envs=envs, launches=launches["crossing_cast"],
+        per_step=(launches["crossing_cast"] - 1) / (updates * steps),
         env_steps_per_s=envs * steps * PPO_TIMED_UPDATES / seconds,
         step_ms=seconds * 1e3 / PPO_TIMED_UPDATES,
         rollout_ms=trainer.phase_ms["rollout"][-PPO_TIMED_UPDATES:],
@@ -1282,11 +1306,11 @@ def ppo_layers(device, row="ppo_train_step_mlp_bf16", reps=5) -> dict:
     return out
 
 
-def trainer_shape_rows(device) -> list:
+def trainer_shape_rows(device, launches=None) -> list:
     """measure() of the crossing cast at the PPO rows' shapes ([2048, 64]
     and [4096, 64] on the 8x16 map), on the inputs observe_batch hands it
-    after a reset; launches per env step: 66 observations per 64-step
-    update of the feedforward trainer."""
+    after a reset; ``launches``: each row's launches per env step, as its
+    phase 7 run counted them, by row."""
     import dataclasses
 
     import raycastworlds_tpu_torch as rt
@@ -1298,7 +1322,8 @@ def trainer_shape_rows(device) -> list:
         game = rt.SingleRoom(dataclasses.replace(cfg, raycast_backend="auto"))
         args, kwargs = observed_inputs("crossing_cast", game, envs, device)
         m = measure("crossing_cast", f"{row}: {cfg.H}x{cfg.W} B={envs} R=64", args, kwargs)
-        m["launches_per_step"] = (STEPS + 2) / STEPS
+        if launches is not None:
+            m["launches_per_step"] = launches[row]
         rows.append(m)
     return rows
 
@@ -1669,6 +1694,489 @@ def mesh_phase(device) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the adapters and tools
+# ---------------------------------------------------------------------------
+
+ADAPTER_ENVS = 4096       # flagship_single_room_4096
+ADAPTER_STEPS = 64
+ADAPTER_CPU_ENVS = 256    # the card's first envs, held against a CPU run of these envs
+ADAPTER_CPU_STEPS = 16
+GYM_STEPS = 100
+WRAPPER_STEPS = 32
+VIDEO_STEPS = 32
+WEB_KEYS = "wwawdsvrw"
+PROFILE_STEP_STEPS = 16
+PROFILE_PPO_ENVS = 2048   # ppo_train_step_mlp_bf16
+
+
+def flagship_cfg(**kw):
+    """The JAX bench row flagship_single_room_4096's config: SingleRoom,
+    64 rays x 64 px, camera_u32 under ``auto`` (the crossing cast kernel)."""
+    import raycastworlds_tpu_torch as rt
+
+    return rt.EnvConfig(num_rays=64, height_camera_view_pu=64, **kw)
+
+
+def counted(fn):
+    """Every count set to 0 just before ``fn()`` and read just after it:
+    (its result, launches by kernel)."""
+    import torch
+
+    counters = wrappers()
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: f.launches for name, f in counters.items()}
+
+
+def expect_crossing(label, launches, want) -> int:
+    """``crossing_cast`` must have launched ``want`` times and no other
+    kernel at all; returns its launches."""
+    expected = {name: (want if name == "crossing_cast" else 0) for name in KERNELS}
+    check(launches == expected, f"{label}: kernel launches {launches}, expected {expected}")
+    return launches["crossing_cast"]
+
+
+def profiled_calls(label, fn, name="crossing_cast") -> int:
+    """``fn()`` under ``utils/profiling.trace``: the calls of the CUDA
+    function ``{name}_kernel`` in its trace (``aggregate_trace``), which
+    must be at least one."""
+    from raycastworlds_tpu_torch.utils import profiling
+
+    path = os.path.join(TRACE_DIR, "adapters_" + label.replace(" ", "_"))
+    with profiling.trace(path):
+        fn()
+    _, calls, _ = profiling.aggregate_trace(path)
+    n = sum(c for k, c in calls.items() if f"{name}_kernel" in k)
+    check(n > 0, f"{label}: the profiler saw no {name}_kernel")
+    return n
+
+
+def same_arrays(label, got, want) -> None:
+    """Two numpy arrays, equal bit for bit with the same dtype and shape."""
+    got, want = np.asarray(got), np.asarray(want)
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and np.array_equal(got, want, equal_nan=got.dtype.kind == "f"),
+          f"{label}: {got.dtype}{got.shape} differs from {want.dtype}{want.shape}")
+
+
+def same_five_tuple(label, got, want) -> None:
+    """(obs, reward, terminated, truncated, info) of two adapter steps."""
+    for name, g, w in zip(("obs", "reward", "terminated", "truncated"), got[:4], want[:4]):
+        check(type(g) is type(w), f"{label} {name}: {type(g)} vs {type(w)}")
+        same_arrays(f"{label} {name}", g, w)
+    check(sorted(got[4]) == sorted(want[4]), f"{label}: info keys {sorted(got[4])}")
+    for k in want[4]:
+        same_arrays(f"{label} info[{k}]", got[4][k], want[4][k])
+
+
+def first_envs(out, n):
+    """A vector adapter step's arrays cut to the first ``n`` envs."""
+    obs, reward, term, trunc, info = out
+    return (obs[:n], reward[:n], term[:n], trunc[:n], {k: v[:n] for k, v in info.items()})
+
+
+def vector_adapter_phase(device):
+    """9a. GymVectorAdapter at flagship_single_room_4096: ``reset(seed=0)``
+    and ADAPTER_STEPS steps of numpy-seeded actions, counted and timed;
+    every returned array equal to ``Env.reset``/``Env.step`` on the card
+    with the adapter's keys; the first ADAPTER_CPU_ENVS envs of the first
+    ADAPTER_CPU_STEPS steps equal to an adapter of that many envs on the
+    CPU; again with ``final_observation=True``.  Prints env-steps/s through
+    the adapter beside ``Env.step``'s with the obs left on the card
+    (``steps_per_second_program``), the host-copy ms per step and the
+    crossing cast's launches per step.  Returns (launches, the final state
+    of the first run, the first run's launches per step)."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.parallel import rollout
+    from raycastworlds_tpu_torch.utils import to_numpy
+
+    cfg = flagship_cfg()
+    actions = np.random.default_rng(SEED).integers(
+        0, 4, size=(ADAPTER_STEPS, ADAPTER_ENVS)).astype(np.int32)
+    total, final_state, rows = 0, None, {}
+    for final in (False, True):
+        label = "GymVectorAdapter" + (" final_observation" if final else "")
+        adapter = rt.GymVectorAdapter(rt.SingleRoom(cfg), ADAPTER_ENVS,
+                                      final_observation=final, device=device)
+
+        def drive():
+            obs, _ = adapter.reset(seed=SEED)
+            t0 = time.perf_counter()
+            outs = [adapter.step(a) for a in actions]
+            return obs, outs, time.perf_counter() - t0
+
+        (obs0, outs, seconds), launches = counted(drive)
+        per_step = 2 if final else 1
+        total += expect_crossing(label, launches, 1 + per_step * ADAPTER_STEPS)
+
+        # the same keys through Env on the card, and each step's host copies
+        env = rt.Env(rt.SingleRoom(cfg), ADAPTER_ENVS, device=device, final_obs_in_info=final)
+        state, obs = env.reset(rt.rng.split(rt.rng.PRNGKey(SEED))[1])
+        same_arrays(f"{label} reset obs", obs0, to_numpy(obs))
+        ended, copy_ms = 0, []
+        for t, (a, got) in enumerate(zip(actions, outs)):
+            res = env.step(state, torch.from_numpy(a))
+            state = res.state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = {k: to_numpy(v) for k, v in res.info.items()}
+            want = (to_numpy(res.obs), to_numpy(res.reward), info["terminated"],
+                    info["truncated"], info)
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+            same_five_tuple(f"{label} step {t}", got, want)
+            done = got[2] | got[3]
+            if final:
+                same_arrays(f"{label} step {t} final_observation where no episode ended",
+                            got[4]["final_observation"][~done], got[0][~done])
+            ended += int(done.sum())
+        check(same_state(adapter._state, state), f"{label}: final state differs from Env's")
+
+        cpu = rt.GymVectorAdapter(rt.SingleRoom(cfg), ADAPTER_CPU_ENVS,
+                                  final_observation=final, device="cpu")
+        same_arrays(f"{label} CPU reset obs", obs0[:ADAPTER_CPU_ENVS], cpu.reset(seed=SEED)[0])
+        for t in range(ADAPTER_CPU_STEPS):
+            same_five_tuple(f"{label} card vs CPU step {t}",
+                            first_envs(outs[t], ADAPTER_CPU_ENVS),
+                            cpu.step(actions[t, :ADAPTER_CPU_ENVS]))
+        copies = len(outs[0][4]) + 2
+        rows[final] = dict(sps=ADAPTER_ENVS * ADAPTER_STEPS / seconds,
+                           step_ms=seconds * 1e3 / ADAPTER_STEPS,
+                           copy_ms=float(np.median(copy_ms)), copies=copies,
+                           per_step=(launches["crossing_cast"] - 1) / ADAPTER_STEPS,
+                           ended=ended,
+                           calls=profiled_calls(label, lambda: adapter.step(actions[0])))
+        if not final:
+            final_state = adapter._state
+        del outs
+        print(f"{label} {ADAPTER_ENVS} envs x {ADAPTER_STEPS} steps (flagship u32 64 x 64, "
+              f"auto): every array == Env.reset/Env.step on the card, first "
+              f"{ADAPTER_CPU_ENVS} envs x {ADAPTER_CPU_STEPS} steps == a CPU adapter; "
+              f"{ended} episode ends; {rows[final]['sps']:.1f} env-steps/s through the "
+              f"adapter ({rows[final]['step_ms']:.2f} ms/step); host copy "
+              f"{rows[final]['copy_ms']:.2f} ms/step ({copies} arrays); crossing_cast "
+              f"{rows[final]['per_step']:.1f} launches/step; the profiler saw "
+              f"{rows[final]['calls']} crossing_cast_kernel calls in one step")
+
+    env = rt.Env(rt.SingleRoom(cfg), ADAPTER_ENVS, device=device)
+    run = rollout.steps_per_second_program(env, ADAPTER_STEPS)
+    state, _ = env.reset(rt.rng.PRNGKey(SEED))
+    state, acc = run(state, rt.rng.PRNGKey(SEED + 1))
+    float(acc)
+
+    def timed_run():
+        t0 = time.perf_counter()
+        float(run(state, rt.rng.PRNGKey(SEED + 2))[1])
+        return time.perf_counter() - t0
+
+    seconds, launches = counted(timed_run)
+    total += expect_crossing("Env.step program", launches, ADAPTER_STEPS)
+    sps = ADAPTER_ENVS * ADAPTER_STEPS / seconds
+    print(f"flagship Env.step with the obs left on the card (steps_per_second_program): "
+          f"{sps:.1f} env-steps/s ({seconds * 1e3 / ADAPTER_STEPS:.2f} ms/step); through "
+          f"the vector adapter {rows[False]['sps']:.1f} ({rows[False]['sps'] / sps:.3f}x), "
+          f"with final_observation {rows[True]['sps']:.1f}")
+    return total, final_state, rows[False]["per_step"]
+
+
+def gym_adapter_phase(device):
+    """9b. GymAdapter at the reference default (512 rays x 256 px, one
+    env, max_episode_steps=50): GYM_STEPS steps with a render after each,
+    re-seeded on every episode end as tests/test_gym_compat.py does; every
+    five-tuple, reset obs and render equal to the same run on the CPU.
+    Prints ms per step.  Returns (launches, launches per step after the
+    first reset: a step, a render and the re-seeded resets)."""
+    import raycastworlds_tpu_torch as rt
+
+    actions = np.random.default_rng(SEED + 1).integers(0, 4, size=GYM_STEPS)
+
+    def drive(dev):
+        adapter = rt.GymAdapter(rt.SingleRoom(rt.EnvConfig()), max_episode_steps=50,
+                                device=dev)
+        out, resets, step_s = [adapter.reset(seed=SEED)[0]], 0, 0.0
+        for t, a in enumerate(actions):
+            t0 = time.perf_counter()
+            step = adapter.step(int(a))
+            step_s += time.perf_counter() - t0
+            out += [step, adapter.render()]
+            if step[2] or step[3]:
+                out.append(adapter.reset(seed=t + 1 if step[2] else t + 100)[0])
+                resets += 1
+        return out, resets, step_s
+
+    (card, resets, step_s), launches = counted(lambda: drive(device))
+    n = expect_crossing("GymAdapter", launches, 1 + 2 * GYM_STEPS + resets)
+    cpu, cpu_resets, _ = drive("cpu")
+    check(len(card) == len(cpu) and resets == cpu_resets, "GymAdapter: runs differ in length")
+    for i, (g, w) in enumerate(zip(card, cpu)):
+        if isinstance(w, tuple):
+            same_five_tuple(f"GymAdapter item {i}", g, w)
+        else:
+            same_arrays(f"GymAdapter item {i}", g, w)
+    check(resets > 0, "GymAdapter: no episode ended")
+    print(f"GymAdapter reference default (1 env, 512 rays x 256 px, max_episode_steps 50): "
+          f"{GYM_STEPS} steps + renders, {resets} re-seeded resets == the CPU run; "
+          f"{step_s * 1e3 / GYM_STEPS:.2f} ms per step; crossing_cast {n} launches")
+    return n, (n - 1) / GYM_STEPS
+
+
+def wrappers_phase(device) -> int:
+    """9c. FrameStack(n_stack=4) over the PPO throughput row's env
+    (SingleRoom 64 x 64 camera_gray_u8, 4096 envs) and
+    ObsTransform(downsample2x) over the flagship u32 env: reset and
+    WRAPPER_STEPS steps each, the first ADAPTER_CPU_ENVS envs' obs, reward
+    and done equal to a CPU run of those envs."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.utils import to_numpy
+    from raycastworlds_tpu_torch.wrappers import downsample2x
+
+    actions = np.random.default_rng(SEED + 2).integers(
+        0, 4, size=(WRAPPER_STEPS, ADAPTER_ENVS)).astype(np.int32)
+    cases = (
+        ("FrameStack(4) camera_gray_u8",
+         lambda dev, n: rt.FrameStack(rt.Env(rt.SingleRoom(flagship_cfg(
+             obs_type="camera_gray_u8")), n, device=dev), n_stack=4)),
+        ("ObsTransform(downsample2x) camera_u32",
+         lambda dev, n: rt.ObsTransform(rt.Env(rt.SingleRoom(flagship_cfg()), n, device=dev),
+                                        downsample2x)),
+    )
+    total = 0
+    for label, make in cases:
+        def drive(dev, n):
+            w = make(dev, n)
+            state, obs = w.reset(rt.rng.PRNGKey(SEED))
+            out = [to_numpy(obs[:ADAPTER_CPU_ENVS])]
+            t0 = time.perf_counter()
+            for a in actions[:, :n]:
+                res = w.step(state, torch.from_numpy(a))
+                state = res.state
+                out += [to_numpy(x[:ADAPTER_CPU_ENVS]) for x in (res.obs, res.reward, res.done)]
+            return w, state, out, time.perf_counter() - t0
+
+        (w, state, card, seconds), launches = counted(lambda: drive(device, ADAPTER_ENVS))
+        total += expect_crossing(label, launches, 1 + WRAPPER_STEPS)
+        _, _, cpu, _ = drive("cpu", ADAPTER_CPU_ENVS)
+        for i, (g, c) in enumerate(zip(card, cpu)):
+            same_arrays(f"{label} item {i}", g, c)
+        calls = profiled_calls(label, lambda: w.step(state, torch.from_numpy(actions[0])))
+        print(f"{label} {ADAPTER_ENVS} envs x {WRAPPER_STEPS} steps: first "
+              f"{ADAPTER_CPU_ENVS} envs == the CPU run; {seconds * 1e3 / WRAPPER_STEPS:.2f} "
+              f"ms/step (with a {ADAPTER_CPU_ENVS}-env host copy); obs {tuple(card[1].shape)} "
+              f"{card[1].dtype} per {ADAPTER_CPU_ENVS} envs; the profiler saw {calls} "
+              f"crossing_cast_kernel calls in one step")
+    return total
+
+
+def video_phase(device) -> int:
+    """9d. ``record_episode`` on the card (2 envs, VIDEO_STEPS steps) at the
+    reference default and at MultiPlayerRoom's main-path config, camera and
+    top views: frames equal to the CPU's, and the GIFs written from both
+    byte-equal (Pillow where it is installed, else the module's own
+    writer; the 256 x 512 views keep every 8th frame, to bound the
+    writer's time)."""
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.utils import video
+
+    cases = (("reference default", rt.SingleRoom, rt.EnvConfig()),
+             ("multi_player", rt.MultiPlayerRoom, multi_player_cfg()))
+    total = 0
+    for label, family, cfg in cases:
+        for view in ("camera", "top"):
+            name = f"record_episode {label} {view}"
+
+            def record(dev):
+                env = rt.Env(family(cfg), num_envs=2, device=dev)
+                return video.record_episode(env, rt.rng.PRNGKey(SEED), steps=VIDEO_STEPS,
+                                            view=view)
+
+            card, launches = counted(lambda: record(device))
+            total += expect_crossing(name, launches, 2 + 2 * VIDEO_STEPS)
+            cpu = record("cpu")
+            same_arrays(name, card, cpu)
+            # one player's frames of MultiPlayerRoom's cameras
+            frames = {"card": card, "cpu": cpu}
+            if card.ndim == 4:
+                frames = {k: v[:, 0] for k, v in frames.items()}
+            every = 8 if card.shape[-2] * card.shape[-1] > 64 * 64 else 1
+            gifs = []
+            for tag, f in frames.items():
+                path = os.path.join(TRACE_DIR, f"{name.replace(' ', '_')}_{tag}.gif")
+                os.makedirs(TRACE_DIR, exist_ok=True)
+                video.save_gif(path, f[::every], fps=8)
+                with open(path, "rb") as fh:
+                    gifs.append(fh.read())
+            check(gifs[0] == gifs[1], f"{name}: GIF bytes differ")
+            print(f"{name}: {tuple(card.shape)} frames == the CPU's; GIF of "
+                  f"{len(card[::every])} frames byte-equal ({len(gifs[0])} B)")
+    return total
+
+
+def web_phase(device) -> int:
+    """9e. WebPlaySession (the viewer's default env, 128 rays x 128 px) on
+    the card through the key script WEB_KEYS: every ``frame_png()`` and
+    status byte-equal to a CPU session's.  Prints ms per key."""
+    from raycastworlds_tpu_torch.utils import webviewer
+
+    def drive(dev):
+        session = webviewer.WebPlaySession(seed=SEED, device=dev)
+        out, seconds = [session.frame_png(), session.status()], 0.0
+        for ch in WEB_KEYS:
+            t0 = time.perf_counter()
+            out += [session.handle_key(ch), session.frame_png()]
+            seconds += time.perf_counter() - t0
+        return out, seconds
+
+    (card, seconds), launches = counted(lambda: drive(device))
+    # reset and first frame, then a step and a frame per move key, a frame
+    # for "v", a reset and a frame for "r"
+    moves = sum(ch in "wsad" for ch in WEB_KEYS)
+    n = expect_crossing("WebPlaySession", launches,
+                        2 + 2 * moves + WEB_KEYS.count("v") + 2 * WEB_KEYS.count("r"))
+    cpu, _ = drive("cpu")
+    check(card == cpu, "WebPlaySession: card frames or statuses differ from the CPU's")
+    print(f"WebPlaySession keys {WEB_KEYS!r}: {len(WEB_KEYS) + 1} PNG frames and statuses "
+          f"byte-equal to the CPU session's; {seconds * 1e3 / len(WEB_KEYS):.2f} ms per key "
+          f"(step or view change, and the PNG)")
+    return n
+
+
+def debug_phase(device, state) -> int:
+    """9f. ``utils/debug``: ``validate_state`` passes on 9a's final state,
+    ``checked(env.step)`` returns no error there, and a state with one NaN
+    position throws."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.utils import debug
+
+    cfg = flagship_cfg()
+    env = rt.Env(rt.SingleRoom(cfg), ADAPTER_ENVS, device=device)
+    debug.validate_state(cfg, state)
+    actions = torch.zeros(ADAPTER_ENVS, dtype=torch.int32, device=device)
+    (err, res), launches = counted(lambda: debug.checked(env.step)(state, actions))
+    n = expect_crossing("checked(env.step)", launches, 1)
+    check(err.get() is None, f"checked(env.step): {err.get()}")
+    pos = res.state.pos_wu.clone()
+    pos[7, 0] = float("nan")
+    err, _ = debug.checked(lambda s: s.replace(pos_wu=pos))(res.state)
+    try:
+        err.throw()
+        raise AssertionError("no error")
+    except RuntimeError as e:
+        check("pos_wu: 1 non-finite" in str(e), f"checked NaN state: {e}")
+    print("utils/debug: validate_state passes on the vector adapter's final state, "
+          "checked(env.step) reports no error, a state with one NaN position throws")
+    return n
+
+
+def profile_step_phase(device) -> int:
+    """9g. ``examples/profile_step`` at flagship_single_room_4096 for
+    PROFILE_STEP_STEPS steps (its JSON line, top 15 kernels):
+    ``crossing_cast_kernel`` in its trace once per step (the profiler may
+    drop records)."""
+    from raycastworlds_tpu_torch.examples import profile_step
+    from raycastworlds_tpu_torch.utils import profiling
+
+    path = os.path.join(TRACE_DIR, "profile_step")
+    out, launches = counted(lambda: profile_step.main([
+        "--num-envs", str(ADAPTER_ENVS), "--steps", str(PROFILE_STEP_STEPS), "--top", "15",
+        "--trace-dir", path, "--device", str(device)]))
+    # the reset's observation, then the warm-up, timed and profiled runs
+    n = expect_crossing("profile_step", launches, 1 + 3 * PROFILE_STEP_STEPS)
+    _, calls, _ = profiling.aggregate_trace(path)
+    seen = sum(c for k, c in calls.items() if "crossing_cast_kernel" in k)
+    check(0 < seen <= PROFILE_STEP_STEPS,
+          f"profile_step: {seen} crossing_cast_kernel calls in {PROFILE_STEP_STEPS} steps")
+    check(out["device"].startswith("cuda") and out["device_ms_per_step"] > 0,
+          "profile_step: no device time")
+    # the labels reach the hash: threefry is most of the reset's device time
+    # (about 94% at this row, PERF.md); a hash call past the patched
+    # rng.threefry2x32
+    # would read far lower
+    within = {k: v["ms_per_step"] for k, v in out["within"].items()}
+    check(0 < within["reset_batch"] and 0.5 * within["reset_batch"] < within["threefry"],
+          f"profile_step: threefry {within['threefry']} of reset_batch "
+          f"{within['reset_batch']} ms per step")
+    print(f"profile_step: crossing_cast_kernel {seen} calls in {PROFILE_STEP_STEPS} steps; "
+          f"wall {out['wall_ms_per_step']:.2f} ms/step, device "
+          f"{out['device_ms_per_step']:.3f} ms/step, busy {out['busy']:.1%}, "
+          f"{out['kernels_per_step']:.1f} kernels/step; reset_batch "
+          f"{out['within']['reset_batch']['pct']:.1f}%, threefry "
+          f"{out['within']['threefry']['pct']:.1f}% of device time")
+    return n
+
+
+def profile_ppo_phase(device) -> int:
+    """9h. ``examples/profile_ppo`` at ppo_train_step_mlp_bf16 (camera_gray,
+    2048 envs, mlp hidden 256 bfloat16, 2 epochs), one timed call per phase
+    (its JSON line)."""
+    from raycastworlds_tpu_torch.examples import profile_ppo
+
+    out, launches = counted(lambda: profile_ppo.main([
+        "--num-envs", str(PROFILE_PPO_ENVS), "--rollout-steps", str(STEPS), "--obs", "camera_gray",
+        "--hidden", "256", "--dtype", "bfloat16", "--trunk", "mlp", "--epochs", "2",
+        "--reps", "1", "--device", str(device)]))
+    # init's reset; full and rollout: warm-up + 1, rollout + bootstrap; the
+    # captured rollout; env_only: warm-up + 1, no bootstrap; infer_only's obs
+    full = STEPS + 2
+    n = expect_crossing("profile_ppo", launches, 1 + 2 * full + 2 * full + full
+                        + 2 * (STEPS + 1) + 1)
+    check(all(v > 0 for v in out["times_ms"].values()), f"profile_ppo: {out['times_ms']}")
+    print("profile_ppo ppo_train_step_mlp_bf16 (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["times_ms"].items()))
+    return n
+
+
+def adapter_shape_rows(device, launches=None) -> list:
+    """measure() of the crossing cast at phase 9's shapes, on the inputs
+    observe_batch hands it after a reset: the vector adapter's flagship
+    [4096, 64] and the single-env adapter's reference default [1, 512];
+    ``launches``: each one's launches per step, as phases 9a (without
+    final_observation) and 9b counted them, by label."""
+    import raycastworlds_tpu_torch as rt
+
+    rows = []
+    for label, cfg, envs in (
+            ("GymVectorAdapter flagship camera_u32", flagship_cfg(), ADAPTER_ENVS),
+            ("GymAdapter reference default", rt.EnvConfig(), 1)):
+        args, kwargs = observed_inputs("crossing_cast", rt.SingleRoom(cfg), envs, device)
+        m = measure("crossing_cast", f"{label}: {cfg.H}x{cfg.W} B={envs} R={cfg.num_rays}",
+                    args, kwargs)
+        if launches is not None:
+            m["launches_per_step"] = launches[label]
+        rows.append(m)
+    return rows
+
+
+def adapters_phase(device):
+    """Phase 9: the adapters and tools on the card (a-h above), each
+    sub-phase's seconds printed.  Returns the crossing cast's launches and,
+    for adapter_shape_rows, the adapters' launches per step."""
+    t0 = time.perf_counter()
+    launches, final_state, vector_per_step = vector_adapter_phase(device)
+    seconds = {"a": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    n, gym_per_step = gym_adapter_phase(device)
+    launches += n
+    seconds["b"] = time.perf_counter() - t0
+    for tag, fn in (("c", wrappers_phase), ("d", video_phase),
+                    ("e", web_phase), ("f", lambda d: debug_phase(d, final_state)),
+                    ("g", profile_step_phase), ("h", profile_ppo_phase)):
+        t0 = time.perf_counter()
+        launches += fn(device)
+        seconds[tag] = time.perf_counter() - t0
+    print("phase 9 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; total {sum(seconds.values()):.1f}")
+    return launches, {"GymVectorAdapter flagship camera_u32": vector_per_step,
+                      "GymAdapter reference default": gym_per_step}
+
+
 def main() -> None:
     import torch
 
@@ -1676,7 +2184,9 @@ def main() -> None:
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     times_only = sys.argv[1:] == ["--times-only"]
     mesh_only = sys.argv[1:] == ["--mesh-only"]
-    check(times_only or mesh_only or not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
+    adapters_only = sys.argv[1:] == ["--adapters-only"]
+    check(times_only or mesh_only or adapters_only or not sys.argv[1:],
+          f"unknown arguments {sys.argv[1:]}")
     sys.path.insert(0, ROOT)
     import raycastworlds_tpu_torch as rt
     from raycastworlds_tpu_torch import cuda_build
@@ -1713,10 +2223,20 @@ def main() -> None:
             "count": torch.cuda.device_count()}}))
         return
 
+    if adapters_only:
+        launches, per_step = adapters_phase(device)
+        print(json.dumps({"adapter_launches": {"crossing_cast": launches},
+                          "times": adapter_shape_rows(device, per_step)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+
     paths = main_paths()
     if times_only:
         ref = reference_rows(device)
-        rows = shape_rows(device, paths) + trainer_shape_rows(device)
+        rows = (shape_rows(device, paths) + trainer_shape_rows(device)
+                + adapter_shape_rows(device))
         print(json.dumps({"times": list(ref.values()) + rows}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1761,15 +2281,21 @@ def main() -> None:
                  4096, device)
 
     # 6. each kernel at every main-path shape, on the path's own inputs
-    rows = shape_rows(device, paths, per_step) + trainer_shape_rows(device)
+    # (the trainers' and adapters' shapes after phases 7 and 9, which count
+    # their launches)
+    rows = shape_rows(device, paths, per_step)
 
     # 7. the PPO rows: the trainers through the crossing cast kernel.  A
     # float32 product runs in full float32 (cuBLAS and cuDNN without TF32),
     # so that the kernel and plain train steps compare at float32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    ppo_per_step = {}
     for row in PPO_ROWS:
-        launches["crossing_cast"] += ppo_row_phase(row, device)["launches"]
+        out = ppo_row_phase(row, device)
+        launches["crossing_cast"] += out["launches"]
+        ppo_per_step[row] = out["per_step"]
+    rows += trainer_shape_rows(device, ppo_per_step)
     ppo_kernel_vs_plain(device)
     ppo_layers(device)
     ppo_profile(device)
@@ -1780,6 +2306,11 @@ def main() -> None:
     from raycastworlds_tpu_torch import bench_scaling
 
     bench_scaling.main(["--steps", str(STEPS)])
+
+    # 9. the adapters and tools
+    n, adapter_per_step = adapters_phase(device)
+    launches["crossing_cast"] += n
+    rows += adapter_shape_rows(device, adapter_per_step)
 
     print(json.dumps({"kernels": [
         {

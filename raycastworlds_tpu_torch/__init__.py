@@ -12,9 +12,15 @@ imports ``torch`` and numpy only.
   ``LockedRoom``, ``MultiPlayerRoom`` -- the other world families, each
   with its config class
 * ``Env``       -- batched auto-resetting environment on one device
+* ``GymAdapter``, ``GymVectorAdapter`` -- gymnasium-style single-env and
+  vector-env facades (numpy out)
+* ``FrameStack``, ``ObsTransform`` -- composable env wrappers
 * ``rng``       -- threefry-2x32, bit-exact with ``jax.random``
 * ``ops``       -- raycasts (plain and CUDA kernels), collision, render,
   top view
+* ``utils``     -- checkpoints, debug checks, profiling, episode video,
+  the terminal/X11 and browser viewers
+* ``examples``  -- the demo and profile scripts (``python -m``)
 """
 
 from .config import (
@@ -34,7 +40,9 @@ from .models.multi_goal import MultiGoalConfig, MultiGoalRoom
 from .models.multi_player import MultiPlayerConfig, MultiPlayerRoom
 from .models.random_room import RandomRoom, RandomRoomConfig
 from .models.single_room import SingleRoom
-from .state import EnvState
+from .state import EnvState, tile_map
+from .gym_compat import GymAdapter, GymVectorAdapter
+from .wrappers import FrameStack, ObsTransform
 from . import colors, rng
 
 __version__ = "0.1.0"
@@ -58,6 +66,11 @@ __all__ = [
     "LockedRoomConfig",
     "MultiPlayerRoom",
     "MultiPlayerConfig",
+    "GymAdapter",
+    "GymVectorAdapter",
+    "FrameStack",
+    "ObsTransform",
+    "tile_map",
     "colors",
     "rng",
     "NUM_ACTIONS",

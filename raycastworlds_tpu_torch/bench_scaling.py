@@ -51,10 +51,12 @@ from .parallel.rollout import steps_per_second_program
 
 def build_env(game: str = "single_room", num_envs: int = 4096, num_rays: int = 64,
               height_px: int = 64, obs: str = "camera_u32", map_h: int = 0, map_w: int = 0,
-              reset_budget: int = 0, device=None, mesh=None) -> Env:
+              reset_budget: int = 0, device=None, mesh=None, *,
+              raycast: str = "auto") -> Env:
     """The JAX bench's ``build_env`` for one workload row (``bench.py``),
-    untextured with ``raycast_backend="auto"``."""
-    kw = dict(num_rays=num_rays, height_camera_view_pu=height_px, obs_type=obs)
+    untextured; ``raycast`` is the raycast backend (``auto`` by default)."""
+    kw = dict(num_rays=num_rays, height_camera_view_pu=height_px, obs_type=obs,
+              raycast_backend=raycast)
     maps = {}
     if map_h:
         maps["height_tile_map_tu"] = map_h

@@ -252,14 +252,14 @@ def render_camera_u32(
 
 def u32_to_rgb(img: torch.Tensor) -> torch.Tensor:
     """0x00RRGGBB (int32 or uint32 view) -> uint8[..., 3]."""
-    img = _as_i32(img)
+    img = as_i32(img)
     return torch.stack(
         [(img >> 16) & 0xFF, (img >> 8) & 0xFF, img & 0xFF], dim=-1
     ).to(torch.uint8)
 
 
 def _luma_sum(img: torch.Tensor) -> torch.Tensor:
-    img = _as_i32(img)
+    img = as_i32(img)
     r = ((img >> 16) & 0xFF).to(torch.float32)
     g = ((img >> 8) & 0xFF).to(torch.float32)
     b = (img & 0xFF).to(torch.float32)
@@ -277,7 +277,9 @@ def u32_to_gray_u8(img: torch.Tensor) -> torch.Tensor:
     return (_luma_sum(img) + 0.5).to(torch.uint8)
 
 
-def _as_i32(img: torch.Tensor) -> torch.Tensor:
+def as_i32(img: torch.Tensor) -> torch.Tensor:
+    """uint32 frames as their int32 view (colours are below 2**24, and
+    torch's CUDA uint32 support is thin); other tensors as they are."""
     return img.view(torch.int32) if img.dtype == torch.uint32 else img
 
 

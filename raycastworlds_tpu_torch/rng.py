@@ -2,8 +2,9 @@
 
 The counterpart of ``jax.random`` as the engine uses it, reproducing JAX's
 bits exactly (JAX 0.9 with ``jax_threefry_partitionable=True``, its
-default): ``PRNGKey``, ``split``, ``randint``, float32 ``uniform`` and
-``bernoulli``, and for the trainers ``categorical`` and ``permutation``.
+default): ``PRNGKey``, ``split``, ``fold_in``, ``randint``, float32
+``uniform`` and ``bernoulli``, and for the trainers ``categorical`` and
+``permutation``.
 All of the engine's randomness enters through these draws, with per-env
 keys, which is what makes trajectories reproducible per env and independent
 of the batch size.
@@ -107,6 +108,17 @@ def split(key: torch.Tensor, num: int = 2, shard: Shard = None) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2]`` keys -> ``[..., num, 2]``; with
     ``shard=(start, stop)`` only those of the ``num`` keys."""
     b0, b1 = _hash(key, (num,), shard)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: threefry of the key over the
+    counter words (0, data as uint32).  ``[..., 2]`` keys -> ``[..., 2]``."""
+    data = int(data)
+    if not 0 <= data < 2**32:
+        raise ValueError("fold_in data must fit in uint32")
+    zero = torch.zeros((), dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(key[..., 0], key[..., 1], zero, zero + data)
     return torch.stack([b0, b1], dim=-1)
 
 

@@ -79,6 +79,24 @@ class EnvState:
     def device(self) -> torch.device:
         return self.pos_wu.device
 
+    @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        return tuple(self.dir_au.shape)
+
+    @property
+    def wall_map(self) -> torch.Tensor:
+        """Dense bool[B, H, W] wall map, unpacked on demand (debug, top
+        view and tile-grid consumers; never on the step's hot path)."""
+        from .ops import bitmap
+
+        return bitmap.unpack_bits(self.wall_words, self.hw)
+
+    def replace_walls(self, wall_map: torch.Tensor) -> "EnvState":
+        """A state with a new dense wall map (re-packed)."""
+        from .ops import bitmap
+
+        return self.replace(wall_words=bitmap.pack_bits(wall_map))
+
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
 
@@ -148,3 +166,27 @@ def select(pred: torch.Tensor, on_true: EnvState, on_false: EnvState) -> EnvStat
     if t.keys() != f.keys():
         raise ValueError(f"states carry different leaves: {sorted(t)} vs {sorted(f)}")
     return on_false.replace(**{k: one(t[k], f[k]) for k in f})
+
+
+def tile_map(state: EnvState) -> torch.Tensor:
+    """The reference's tile map, bool[B, 2, H, W] (wall and goal channels)."""
+    from .ops import bitmap
+
+    h, w = state.hw
+    if state.goal_words is not None:
+        goal_map = bitmap.unpack_bits(state.goal_words, (h, w))
+    else:
+        ii = torch.arange(h, device=state.device)[:, None]
+        jj = torch.arange(w, device=state.device)[None, :]
+        gi, gj = state.goal_tu[..., 0], state.goal_tu[..., 1]
+        goal_map = (ii == gi[..., None, None]) & (jj == gj[..., None, None])
+    return torch.stack([state.wall_map, goal_map], dim=-3)
+
+
+def metrics(state: EnvState) -> Dict[str, torch.Tensor]:
+    return {
+        "reward": state.reward,
+        "done": state.done,
+        "t": state.t,
+        "episode_return": state.episode_return,
+    }

@@ -19,6 +19,7 @@ import raycastworlds_tpu_torch.parallel.rollout
 import raycastworlds_tpu_torch.parallel.params
 import raycastworlds_tpu_torch.train
 import raycastworlds_tpu_torch.utils.checkpoint
+import raycastworlds_tpu_torch.utils.webviewer
 from raycastworlds_tpu_torch import bench_scaling, dryrun
 from raycastworlds_tpu_torch.parallel import mesh as mesh_lib, ppo, ppo_rnn
 for backend in ("auto", "fused"):
@@ -60,6 +61,42 @@ for trainer in (ppo.PPOTrainer(env, cfg, hidden=8, trunk="mlp", mesh=mesh),
     trainer.train_step(trainer.init(rt.rng.PRNGKey(0)))
 dryrun.dryrun_multichip(1, ["cpu"], num_rays=8, height_px=8)
 bench_scaling.build_env(num_envs=2, num_rays=8, height_px=8, device="cpu", mesh=mesh)
+import contextlib, io, tempfile
+import numpy as np
+import torch
+from raycastworlds_tpu_torch import gym_compat, wrappers
+from raycastworlds_tpu_torch.utils import debug, profiling, video, viewer, webviewer
+from raycastworlds_tpu_torch.examples import (
+    multi_player_demo, profile_ppo, profile_step, rollout_demo)
+game = rt.SingleRoom(rt.EnvConfig(**small))
+g = rt.GymAdapter(game, max_episode_steps=2, device="cpu")
+g.reset(seed=0)
+g.step(0)
+g.render()
+v = rt.GymVectorAdapter(game, num_envs=2, final_observation=True, device="cpu")
+v.reset(seed=0)
+v.step(np.zeros(2, np.int64))
+v.render()
+env = rt.Env(game, num_envs=2, device="cpu")
+for w in (rt.FrameStack(env, 2), rt.ObsTransform(env, wrappers.downsample2x)):
+    s, _ = w.reset(rt.rng.PRNGKey(0))
+    w.step(s, torch.zeros(2, dtype=torch.int32))
+state, _ = env.reset(rt.rng.PRNGKey(0))
+debug.validate_state(env.cfg, state)
+debug.checked(env.step)(state, torch.zeros(2, dtype=torch.int32))[0].throw()
+profiling.device_metrics(state.done[None], state.reward[None])
+video.record_episode(env, rt.rng.PRNGKey(0), steps=1)
+viewer.play(env, out=io.StringIO(), window=False)
+webviewer.WebPlaySession(env).handle_key("w")
+rt.tile_map(state)
+rt.rng.fold_in(rt.rng.PRNGKey(0), 1)
+tiny = ["--device", "cpu", "--num-rays", "8", "--height-px", "8"]
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+    rollout_demo.main(tiny + ["--num-envs", "2", "--chunk-steps", "1", "--chunks", "1"])
+    multi_player_demo.main(tiny + ["--num-envs", "1", "--steps", "1", "--out", d])
+    profile_step.main(tiny + ["--num-envs", "2", "--steps", "1", "--trace-dir", d + "/t"])
+    profile_ppo.main(tiny + ["--num-envs", "2", "--rollout-steps", "2", "--hidden", "8",
+                             "--trunk", "mlp", "--reps", "1"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "raycastworlds_tpu"))
 print(",".join(bad))

@@ -114,3 +114,14 @@ def test_categorical():
         score = np.sort((-torch.log(-torch.log(u))).numpy()[j] + logits[i, j])
         assert score[-1] - score[-2] < 1e-5, (i, j, score)
     assert len(differ) <= 2, differ
+
+
+@pytest.mark.parametrize("data", [0, 1, 2**31, 2**32 - 1])
+def test_fold_in(data):
+    want = np.asarray(jax.vmap(lambda k: jax.random.fold_in(k, data))(_keys_jax()))
+    got = rng.fold_in(_keys_torch(), data).numpy().astype(np.uint32)
+    np.testing.assert_array_equal(want, got)
+    # one key, as the rollout demo folds its chunk key
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.fold_in(jax.random.PRNGKey(1), data)),
+        rng.fold_in(rng.PRNGKey(1), data).numpy().astype(np.uint32))
