@@ -5,6 +5,7 @@
     python3 chip_smoke.py --times-only   # phases 1, 2 and the kernel times
     python3 chip_smoke.py --mesh-only    # phases 1, 2 and 8
     python3 chip_smoke.py --adapters-only  # phases 1, 2 and 9
+    python3 chip_smoke.py --single-only    # phases 1, 2 and 10
 
 Builds the CUDA kernels from ``raycastworlds_tpu_torch/csrc`` and drives the
 port's main paths, ``Env(Family(Config(raycast_backend=B)))`` with dense or
@@ -145,10 +146,30 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    threefry's share); (h) ``examples/profile_ppo`` at
    ppo_train_step_mlp_bf16 (its JSON line).  The profiler must see
    ``crossing_cast_kernel`` in (a), (c) and (g).
+10. the single-env Game API (``Game.reset_single``, ``step_single``,
+   ``observe_single``), each family's reset (the player then placed facing
+   its goal) plus 64 steps of seeded actions, the first three forward,
+   re-reset from ``state.rng_key`` on ``done``: under ``auto``
+   (the crossing cast at [1, R]) against ``crossing`` and under ``pallas``
+   (the DDA cast) against ``scan``, for SingleRoom at the reference default
+   (8x16, 512 rays x 256 px), the other families at the JAX bench rows'
+   widths and MultiPlayerRoom at 2 players; under ``fused`` (the DDA + u32
+   render kernel, camera_u32 and camera_gray) against ``scan`` for
+   SingleRoom, DynamicRoom and LockedRoom; under ``crossing_kernel_fused``
+   (the crossing + pal8 render kernel) in camera_pal8 against ``crossing``
+   for SingleRoom and RandomRoom.  Each run: the expected kernel launched
+   once per observation and no other kernel, by the wrappers' counts and
+   by the profiler's trace; states and frames equal to the plain run on the
+   card and to the CPU run; states equal to row k of an 8-env
+   ``reset_batch``/``step_batch`` run on the card with the same keys and
+   actions; ms per single-env step on the card and on the CPU.  Then
+   ``cast_rays_pallas`` (the DDA kernel at [1, 512]) equal to
+   ``cast_rays_scan``.  Each kernel's B=1 shape joins the kernels' rows.
 
-The line before the last is the kernels' JSON record: each kernel's
+The card's name and power limit are printed again before the kernels'
+JSON record, which is the line before the last: each kernel's
 launches summed over the main paths (and the PPO rows, phase 8's runs on
-every rank and phase 9's runs) that route through it, its numbers at
+every rank and phase 9's and 10's runs) that route through it, its numbers at
 the reference-default shape and, under ``shapes``, at every main-path
 shape with its launches per step; the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises: there is no fallback, and a
@@ -2177,6 +2198,293 @@ def adapters_phase(device):
                       "GymAdapter reference default": gym_per_step}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the single-env Game API
+# ---------------------------------------------------------------------------
+
+SINGLE_STEPS = 64
+SINGLE_BATCH = 8          # the batch whose row k a single env's run must be
+
+
+def single_runs():
+    """(label, family, config, kernel backend, kernel, plain backend) of
+    every single-env run: each family under ``auto`` (the crossing cast)
+    against ``crossing`` and under ``pallas`` (the DDA cast) against
+    ``scan``; SingleRoom, DynamicRoom and LockedRoom under ``fused`` (the
+    DDA + u32 render kernel) in camera_u32 and camera_gray against ``scan``;
+    SingleRoom and RandomRoom in camera_pal8 under ``crossing_kernel_fused``
+    (the crossing + pal8 render kernel) against ``crossing``.  SingleRoom at
+    the reference default, the other families at the widths of the JAX
+    bench rows (bench.py:283-300), MultiPlayerRoom at 2 players."""
+    import dataclasses
+
+    import raycastworlds_tpu_torch as rt
+
+    room = dict(height_tile_map_tu=16, width_tile_map_tu=16, num_rays=256,
+                height_camera_view_pu=128)
+    small = dict(num_rays=64, height_camera_view_pu=64)
+    families = {
+        "single_room": (rt.SingleRoom, rt.EnvConfig()),
+        "random_room": (rt.RandomRoom, rt.RandomRoomConfig(**room)),
+        "maze": (rt.Maze, rt.MazeConfig(**small)),
+        "multi_goal": (rt.MultiGoalRoom, rt.MultiGoalConfig(**small)),
+        "dynamic_room": (rt.DynamicRoom, rt.DynamicRoomConfig(**small)),
+        "locked_room": (rt.LockedRoom, rt.LockedRoomConfig(**small)),
+        "multi_player 2p": (rt.MultiPlayerRoom, multi_player_cfg()),
+    }
+    runs = []
+    for name, (game, cfg) in families.items():
+        runs.append((f"{name} auto", game, cfg, "auto", "crossing_cast", "crossing"))
+        runs.append((f"{name} pallas", game, cfg, "pallas", "dda_cast", "scan"))
+    for name in ("single_room", "dynamic_room", "locked_room"):
+        game, cfg = families[name]
+        for obs in ("camera_u32", "camera_gray"):
+            runs.append((f"{name} fused {obs}", game, dataclasses.replace(cfg, obs_type=obs),
+                         "fused", "dda_render_u32", "scan"))
+    for name in ("single_room", "random_room"):
+        game, cfg = families[name]
+        runs.append((f"{name} crossing_kernel_fused camera_pal8", game,
+                     dataclasses.replace(cfg, obs_type="camera_pal8"),
+                     "crossing_kernel_fused", "crossing_render_pal8", "crossing"))
+    return runs
+
+
+def facing_goal(state):
+    """``state`` (one env or a batch) with the player, player 0 of
+    MultiPlayerRoom, 0.2 world units above its goal tile heading +i, so that
+    the first forward move scores and ends the episode."""
+    import torch
+
+    pos, dir_au = state.pos_wu.clone(), state.dir_au.clone()
+    at = state.goal_tu.to(pos.dtype) + torch.tensor([-0.2, 0.5], dtype=pos.dtype,
+                                                    device=pos.device)
+    if pos.dim() > state.goal_tu.dim():   # a player axis
+        pos[..., 0, :], dir_au[..., 0] = at, 0
+    else:
+        pos[...], dir_au[...] = at, 0
+    return state.replace(pos_wu=pos, dir_au=dir_au)
+
+
+def drive_single(game, key, actions):
+    """``reset_single(key)`` on the key's device (the player then placed by
+    facing_goal), then per action ``step_single``, a re-reset from
+    ``state.rng_key`` where the step ended the episode, and
+    ``observe_single``: a single-env caller's loop.  Returns ({leaf: [T+1, ...]} of the states and "obs" of the
+    frames, re-resets, ms per step on the host clock, the device
+    synchronised at the end)."""
+    import torch
+
+    from raycastworlds_tpu_torch.ops import render
+
+    state = facing_goal(game.reset_single(key, key.device))
+    states, frames, resets = [state], [game.observe_single(state)], 0
+    if state.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in actions:
+        state = game.step_single(state, a)
+        if bool(state.done):
+            state = game.reset_single(state.rng_key, state.device)
+            resets += 1
+        states.append(state)
+        frames.append(game.observe_single(state))
+    if state.device.type == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(actions)
+    run = {k: torch.stack([s.leaves()[k] for s in states]) for k in state.leaves()}
+    run["obs"] = torch.stack([render.as_i32(f) for f in frames])
+    return run, resets, ms
+
+
+def drive_batch_row(game, keys, actions, k):
+    """``reset_batch(keys)`` (every player placed by facing_goal) and
+    ``step_batch`` with every env taking the single run's actions, each env
+    re-reset from its ``rng_key`` where its episode ended; {leaf: [T+1,
+    ...]} of env ``k``'s states."""
+    import torch
+
+    from raycastworlds_tpu_torch.state import select
+
+    state = facing_goal(game.reset_batch(keys))
+    rows = [state.index(torch.tensor([k], device=keys.device)).unbatch()]
+    b = keys.shape[0]
+    for a in actions:
+        act = torch.as_tensor(a, dtype=torch.int32, device=keys.device)
+        state = game.step_batch(state, act.expand((b,) + tuple(act.shape)).contiguous())
+        if bool(state.done.any()):
+            state = select(state.done, game.reset_batch(state.rng_key), state)
+        rows.append(state.index(torch.tensor([k], device=keys.device)).unbatch())
+    return {leaf: torch.stack([r.leaves()[leaf] for r in rows]) for leaf in rows[0].leaves()}
+
+
+def same_run(label, got, want) -> None:
+    """Every stack of ``want`` equal to ``got``'s, bit for bit with the same
+    dtypes (``got`` may hold more, as a single run's frames)."""
+    import torch
+
+    check(set(want) <= set(got), f"{label}: leaves {sorted(got)} lack {sorted(want)}")
+    for k in sorted(want):
+        g, w = got[k], want[k].to(got[k].device)
+        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w),
+              f"{label}: {k} differs ({g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)})")
+
+
+def profiled_single(label, game, key, actions, kernel, want) -> None:
+    """The kernel run again under torch.profiler (CUDA activity only: the
+    CPU operators' records would cost seconds a run): the trace must hold
+    exactly ``want`` calls of ``{kernel}_kernel`` and none of the other
+    three kernels.  The profiler can drop a record from a window (a run
+    has shown 64 of 65 launches that the counts saw), so a run that shows
+    fewer calls and no other kernel is repeated, twice at most, and each
+    repeat is printed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raycastworlds_tpu_torch.utils import profiling
+
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "single_" + label.replace(" ", "_") + ".json")
+    expected = {name: (want if name == kernel else 0) for name in KERNELS}
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            drive_single(game, key, actions)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        _, calls, _ = profiling.aggregate_trace(path)
+        seen = {name: sum(c for n, c in calls.items() if f"{name}_kernel" in n)
+                for name in KERNELS}
+        check(all(seen[n] <= expected[n] for n in KERNELS),
+              f"{label}: the profiler saw {seen}, expected {expected}")
+        if seen == expected:
+            return
+        print(f"{label}: profile {attempt + 1} dropped records: saw {seen}, "
+              f"expected {expected}")
+    raise RuntimeError(f"chip_smoke check failed: {label}: the profiler saw {seen} "
+                       f"in 3 runs, expected {expected}")
+
+
+def single_run_phase(i, label, game_cls, cfg, kernel_backend, kernel, plain, device) -> dict:
+    """10a. One single-env run on the card (see drive_single), counted
+    (``kernel`` once per observation, no other kernel) and profiled, against
+    the plain backend on the card, the same run on the CPU, and row k of an
+    8-env batch run on the card with the same keys and actions.  Returns
+    the launches, by kernel, and the card's and CPU's ms per step."""
+    import dataclasses
+
+    import raycastworlds_tpu_torch as rt
+
+    kcfg = dataclasses.replace(cfg, raycast_backend=kernel_backend)
+    game = game_cls(kcfg)
+    shape = game.action_shape
+    actions = np.random.default_rng(SEED + 100 + i).choice(
+        4, size=(SINGLE_STEPS,) + shape, p=[0.55, 0.05, 0.2, 0.2]).astype(np.int32)
+    actions[:3] = 0                       # into the goal: a re-reset
+    actions = [a if shape else int(a) for a in actions]
+    k = i % SINGLE_BATCH
+    keys = rt.rng.split(rt.rng.PRNGKey(SEED + i, device), SINGLE_BATCH)
+    (run, resets, ms), launches = counted(lambda: drive_single(game, keys[k], actions))
+    observations = SINGLE_STEPS + 1
+    want = {name: (observations if name == kernel else 0) for name in KERNELS}
+    check(launches == want, f"{label}: kernel launches {launches}, expected {want}")
+    check(tuple(run["obs"].shape[1:]) == cfg.obs_shape,
+          f"{label}: obs shape {tuple(run['obs'].shape[1:])}")
+    t0 = time.perf_counter()
+    profiled_single(label, game, keys[k], actions, kernel, observations)
+    t_prof = time.perf_counter() - t0
+    plain_run, plain_resets, plain_ms = drive_single(
+        game_cls(dataclasses.replace(cfg, raycast_backend=plain)), keys[k], actions)
+    same_run(f"{label}: {plain} on the card", plain_run, run)
+    cpu_run, cpu_resets, cpu_ms = drive_single(game_cls(kcfg), keys[k].cpu(), actions)
+    same_run(f"{label}: the CPU run", cpu_run, run)
+    t0 = time.perf_counter()
+    row = drive_batch_row(game, keys, actions, k)
+    t_batch = time.perf_counter() - t0
+    same_run(f"{label}: row {k} of the {SINGLE_BATCH}-env batch", run, row)
+    check(resets == plain_resets == cpu_resets, f"{label}: re-resets differ")
+    print(f"single {label}: reset + {SINGLE_STEPS} steps, {resets} re-resets, obs "
+          f"{cfg.obs_shape}; {kernel} {launches[kernel]} launches (profiled: the same), == "
+          f"{plain} on the card == the CPU run == row {k} of {SINGLE_BATCH} envs; ms per "
+          f"step: card {ms:.3f} ({plain} {plain_ms:.3f}), CPU {cpu_ms:.3f}; profiled run "
+          f"{t_prof:.1f} s, batch run {t_batch:.1f} s")
+    return dict(launches=launches, resets=resets, ms=ms, plain_ms=plain_ms, cpu_ms=cpu_ms)
+
+
+def pallas_single_phase(device, num=16) -> int:
+    """10b. ``raycast_pallas.cast_rays_pallas`` (one env, the DDA kernel at
+    [1, 512]) equal to ``cast_rays_scan`` on the card at the reference
+    default, over ``num`` reset states; returns its launches."""
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch.ops import raycast, raycast_pallas
+
+    cfg = rt.EnvConfig(raycast_backend="pallas")
+    game = rt.SingleRoom(cfg)
+    states = game.reset_batch(rt.rng.split(rt.rng.PRNGKey(SEED + 7, device), num))
+    _, words = game._packed_maps_batch(states)
+    total = 0
+    for q in range(num):
+        s = states.index(torch.tensor([q], device=device)).unbatch()
+        hits, launches = counted(lambda: raycast_pallas.cast_rays_pallas(
+            cfg, words[q], s.pos_wu, s.dir_au))
+        check(launches["dda_cast"] == 1 and sum(launches.values()) == 1,
+              f"cast_rays_pallas: launches {launches}")
+        total += 1
+        want = raycast.cast_rays_scan(words[q][None], (cfg.H, cfg.W), s.pos_wu[None],
+                                      hits.ray_dirs[None], cfg.dda_steps)
+        for name, g, w in zip(("hit_tu", "hit_dim", "dist_wu"), hits[1:], want):
+            check(g.shape == w.shape[1:] and torch.equal(g, w[0]),
+                  f"cast_rays_pallas: {name} differs from cast_rays_scan")
+    print(f"cast_rays_pallas == cast_rays_scan at [1, {cfg.num_rays}] on {num} reset states "
+          f"(one dda_cast launch each)")
+    return total
+
+
+def single_paths():
+    """The SingleRoom runs of single_runs(), one per kernel, as main_paths()
+    tuples of one env: the B=1 shapes that shape_rows measures."""
+    return [(label, game, cfg, 1, backend, kernel, [plain], {})
+            for label, game, cfg, backend, kernel, plain in single_runs()
+            if label.startswith("single_room") and "gray" not in label]
+
+
+def single_phase(device):
+    """Phase 10: every single-env run (10a), cast_rays_pallas (10b).
+    Returns the launches, by kernel, and the launches per single step of
+    each SingleRoom run at the reference default, by label."""
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in KERNELS}
+    per_step, summary = {}, []
+    resets = 0
+    for i, (label, game, cfg, backend, kernel, plain) in enumerate(single_runs()):
+        out = single_run_phase(i, label, game, cfg, backend, kernel, plain, device)
+        for name, n in out["launches"].items():
+            launches[name] += n
+        resets += out["resets"]
+        if label.startswith("single_room"):
+            per_step[label] = out["launches"][kernel] / (SINGLE_STEPS + 1)
+            summary.append(f"{label} card {out['ms']:.3f} / CPU {out['cpu_ms']:.3f}")
+    check(resets > 0, "single-env runs: no episode ended, no re-reset was driven")
+    launches["dda_cast"] += pallas_single_phase(device)
+    print("single-env ms per step (reset_single excluded), SingleRoom reference default: "
+          + "; ".join(summary))
+    print(f"phase 10: {resets} re-resets in all, {time.perf_counter() - t0:.1f} s")
+    return launches, per_step
+
+
+def finish(smi, record=None) -> None:
+    """The last lines: the card's name and power limit (``smi``) again, so
+    that they stand beside the numbers, ``record``'s JSON, and the ok line."""
+    import torch
+
+    print(smi)
+    if record is not None:
+        print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     import torch
 
@@ -2185,7 +2493,8 @@ def main() -> None:
     times_only = sys.argv[1:] == ["--times-only"]
     mesh_only = sys.argv[1:] == ["--mesh-only"]
     adapters_only = sys.argv[1:] == ["--adapters-only"]
-    check(times_only or mesh_only or adapters_only or not sys.argv[1:],
+    single_only = sys.argv[1:] == ["--single-only"]
+    check(times_only or mesh_only or adapters_only or single_only or not sys.argv[1:],
           f"unknown arguments {sys.argv[1:]}")
     sys.path.insert(0, ROOT)
     import raycastworlds_tpu_torch as rt
@@ -2218,29 +2527,27 @@ def main() -> None:
         from raycastworlds_tpu_torch import bench_scaling
 
         bench_scaling.main(["--steps", str(STEPS)])
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
+        finish(smi)
         return
 
     if adapters_only:
         launches, per_step = adapters_phase(device)
-        print(json.dumps({"adapter_launches": {"crossing_cast": launches},
-                          "times": adapter_shape_rows(device, per_step)}))
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
+        finish(smi, {"adapter_launches": {"crossing_cast": launches},
+                     "times": adapter_shape_rows(device, per_step)})
+        return
+
+    if single_only:
+        launches, per_step = single_phase(device)
+        finish(smi, {"single_launches": launches,
+                     "times": shape_rows(device, single_paths(), per_step)})
         return
 
     paths = main_paths()
     if times_only:
         ref = reference_rows(device)
         rows = (shape_rows(device, paths) + trainer_shape_rows(device)
-                + adapter_shape_rows(device))
-        print(json.dumps({"times": list(ref.values()) + rows}))
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
+                + adapter_shape_rows(device) + shape_rows(device, single_paths()))
+        finish(smi, {"times": list(ref.values()) + rows})
         return
 
     # 3. every kernel against its plain version on the card (exact), and
@@ -2312,7 +2619,13 @@ def main() -> None:
     launches["crossing_cast"] += n
     rows += adapter_shape_rows(device, adapter_per_step)
 
-    print(json.dumps({"kernels": [
+    # 10. the single-env Game API: every kernel at one env
+    single_launches, single_per_step = single_phase(device)
+    for name, n in single_launches.items():
+        launches[name] += n
+    rows += shape_rows(device, single_paths(), single_per_step)
+
+    finish(smi, {"kernels": [
         {
             "name": name,
             "route": "cuda",
@@ -2333,12 +2646,7 @@ def main() -> None:
                        for r in rows if r["kernel"] == name],
         }
         for name, (source, replaces) in KERNELS.items()
-    ]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    ]})
 
 
 if __name__ == "__main__":

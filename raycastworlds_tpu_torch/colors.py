@@ -108,6 +108,11 @@ def palette_rgb_f32(palette_np: np.ndarray) -> np.ndarray:
     )
 
 
+# [12, 3] float32 RGB in [0, 1] of the base palette (the learner's decode
+# table of camera_pal8 without textures).
+PALETTE_RGB_F32 = palette_rgb_f32(PALETTE_NP)
+
+
 def pal8_to_u32_np(img_pal8: np.ndarray, palette: np.ndarray = None) -> np.ndarray:
     """Decode a palette-index image to 0x00RRGGBB uint32 (host side);
     textured configs pass ``cfg.palette_np``."""
@@ -122,3 +127,10 @@ def u32_to_rgb(img_u32: np.ndarray) -> np.ndarray:
     g = (img_u32 >> 8) & 0xFF
     b = img_u32 & 0xFF
     return np.stack([r, g, b], axis=-1).astype(np.uint8)
+
+
+def rgb_to_u32(rgb: np.ndarray) -> np.ndarray:
+    """Pack uint8-valued [..., 3] RGB into 0x00RRGGBB uint32 (host side),
+    the inverse of :func:`u32_to_rgb`."""
+    rgb = np.asarray(rgb, dtype=np.uint32)
+    return (rgb[..., 0] << 16) | (rgb[..., 1] << 8) | rgb[..., 2]

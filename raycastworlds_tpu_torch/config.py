@@ -18,6 +18,11 @@ from typing import Tuple
 
 import numpy as np
 
+# Object channels of the tile map (``state.tile_map``'s channel axis).
+NUM_OBJECTS = 2
+WALL = 0
+GOAL = 1
+
 # Discrete action set.
 NUM_ACTIONS = 4
 MOVE_FORWARD = 0
@@ -26,6 +31,11 @@ TURN_LEFT = 2
 TURN_RIGHT = 3
 
 ACTION_NAMES = ("MOVE_FORWARD", "MOVE_BACKWARD", "TURN_LEFT", "TURN_RIGHT")
+
+# Hit-face axis of a cast (``RayHits.hit_dim``): 0 = the face perpendicular
+# to the i axis, 1 = perpendicular to the j axis.
+HIT_DIM_I = 0
+HIT_DIM_J = 1
 
 OBS_TYPES = (
     "camera_u32", "camera_rgb", "camera_gray", "camera_pal8",
@@ -271,3 +281,8 @@ class EnvConfig:
 
         return pack_bits_np(self.border_wall_map)
 
+
+def replace(cfg: EnvConfig, **kw) -> EnvConfig:
+    """A copy of ``cfg`` (of its own config class) with the fields ``kw``
+    changed, validated again."""
+    return dataclasses.replace(cfg, **kw)

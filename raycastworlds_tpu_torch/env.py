@@ -24,14 +24,16 @@ one-process state bit for bit.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import rng
 from .models.base import Game
-from .parallel import mesh as mesh_lib
-from .state import EnvState, select
+from .state import EnvState, default_device, select
+
+if TYPE_CHECKING:
+    from .parallel.mesh import Mesh
 
 
 class StepResult(NamedTuple):
@@ -77,7 +79,7 @@ class Env:
         jit: bool = True,
         donate: bool = False,
         reset_budget: int = 0,
-        mesh: Optional[mesh_lib.Mesh] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """``device=None`` is the CUDA device, and raises where there is
         none: the CPU is only ever asked for, never fallen back to.
@@ -106,21 +108,19 @@ class Env:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's {mesh.device}")
             device = mesh.device
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Env runs on the CUDA device by default and none is "
-                    'available; pass device="cpu" to run on the CPU'
-                )
-            device = "cuda"
+        self.device = default_device(device, "Env")
         self.game = game
         self.cfg = game.cfg
         self.num_envs = num_envs
-        self.shard = None if mesh is None else mesh_lib.shard_range(num_envs, mesh)
+        self.shard = None
+        if mesh is not None:
+            # imported here: the parallel package imports this module
+            from .parallel import mesh as mesh_lib
+
+            self.shard = mesh_lib.shard_range(num_envs, mesh)
         self.local_envs = num_envs if mesh is None else self.shard[1] - self.shard[0]
         self.auto_reset = auto_reset
         self.reset_budget = min(reset_budget, num_envs)
-        self.device = torch.device(device)
         self.final_obs_in_info = final_obs_in_info
 
     # -- spaces ---------------------------------------------------------

@@ -5,7 +5,9 @@ over the leading env axis.  Subclasses provide ``reset_batch`` and override
 the hooks their world needs: ``step_batch``, ``_packed_maps_batch`` (the
 obstacle union), ``_block_words_batch`` (tiles rendered in the block
 shades) and, for border-ring + unit-box maps, ``supports_analytic_raycast``
-with ``_analytic_boxes``.
+with ``_analytic_boxes``.  The single-env API (``reset_single``,
+``step_single``, ``observe_single``, ...) is the batch API at one env, for
+every family.
 
 Headings are int32 angle units read through the config's direction and
 ray-fan tables, or, under ``continuous_heading``, float32 angle units whose
@@ -23,11 +25,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..config import MOVE_FORWARD, TURN_LEFT, TURN_RIGHT, EnvConfig
+from ..config import ACTION_NAMES, MOVE_FORWARD, TURN_LEFT, TURN_RIGHT, EnvConfig
 from ..ops import bitmap, collision, lut, raycast, raycast_analytic, render, sampling
 from ..ops import raycast_crossing_kernel as rck
 from ..ops import render_fused, topview
-from ..state import EnvState
+from ..state import EnvState, default_device
 
 
 class Game:
@@ -266,10 +268,14 @@ class Game:
             if cfg.obs_type == "camera_gray":
                 return render.u32_to_gray(img)
             return img.view(torch.uint32)
-        hits = self.cast_batch(state)
+        return self._observe_from_hits(state, self.cast_batch(state))
+
+    def _observe_from_hits(self, state: EnvState, hits: raycast.RayHits) -> torch.Tensor:
+        """The observations of ``state`` rendered from its casts ``hits``."""
         return render.render_observation(
-            cfg, state.wall_words, state.goal_tu, self._player_dir(state), hits,
-            block_words=self._block_words_batch(state), pos_wu=state.pos_wu,
+            self.cfg, state.wall_words, state.goal_tu, self._player_dir(state), hits,
+            block_words=self._block_words_batch(state), goal_words=state.goal_words,
+            pos_wu=state.pos_wu,
         )
 
     def _maps(self, *words):
@@ -295,3 +301,50 @@ class Game:
             block_words=self._block_words_batch(state), pos_wu=state.pos_wu,
         )
         return img.view(torch.uint32)
+
+    # -- one env ----------------------------------------------------------
+    # A single-env state has the batch leaves without the env axis
+    # (``pos_wu`` f[2], ``dir_au`` [], MultiPlayerRoom's ``pos_wu`` f[P, 2]).
+    # Each method below is its batch method at B=1: the same backend
+    # dispatch, so on the card the same kernel at one env.  The JAX package
+    # casts one env by the XLA crossing instead; every kernel equals its
+    # plain version bit for bit, so that is a choice of kernel, not of
+    # result.
+
+    def reset_single(self, key: torch.Tensor, device=None) -> EnvState:
+        """A fresh state from one key int64[2] on ``device``: row k of
+        ``reset_batch`` for the k-th key.  As ``Env``, ``device=None`` is
+        the CUDA device and raises where there is none; the CPU runs only
+        when asked for (``device="cpu"``, or ``state.device`` to re-reset
+        from a state's ``rng_key`` where that state lies).  The other
+        single methods run where their state lies."""
+        key = key.to(default_device(device, "reset_single"))
+        return self.reset_batch(key[None]).unbatch()
+
+    def step_single(self, state: EnvState, action) -> EnvState:
+        """One action (int32[], or int32[P] for MultiPlayerRoom)."""
+        action = torch.as_tensor(action, dtype=torch.int32, device=state.device)
+        return self.step_batch(state.batch1(), action[None]).unbatch()
+
+    def cast_single(self, state: EnvState) -> raycast.RayHits:
+        """The rays of the current pose, ``RayHits`` of [R, ...]."""
+        return raycast.RayHits(*(x[0] for x in self.cast_batch(state.batch1())))
+
+    def observe_from_hits_single(self, state: EnvState, hits: raycast.RayHits) -> torch.Tensor:
+        """The observation rendered from the casts ``hits`` ([R, ...])."""
+        hits = raycast.RayHits(*(x[None] for x in hits))
+        return self._observe_from_hits(state.batch1(), hits)[0]
+
+    def observe_single(self, state: EnvState) -> torch.Tensor:
+        return self.observe_batch(state.batch1())[0]
+
+    def top_view_single(self, state: EnvState) -> torch.Tensor:
+        """uint32[H*ppt, W*ppt] top view."""
+        return self.top_view_batch(state.batch1())[0]
+
+    def camera_view_single(self, state: EnvState) -> torch.Tensor:
+        """uint32 camera view whatever the ``obs_type``."""
+        return self.camera_view_batch(state.batch1())[0]
+
+    def action_names(self):
+        return ACTION_NAMES

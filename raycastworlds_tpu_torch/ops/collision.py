@@ -51,6 +51,19 @@ def _neighbourhood(pos_wu: torch.Tensor, shape):
     return neigh, ni * w + nj
 
 
+def is_player_colliding(
+    obstacle_map: torch.Tensor, pos_wu: torch.Tensor, radius
+) -> torch.Tensor:
+    """bool[]: the player circle at ``pos_wu`` (f[2], one env) overlaps an
+    occupied tile of the dense ``obstacle_map`` (bool[H, W]) in its tile's
+    3x3 neighbourhood; the gathers clamp at the map's edge."""
+    h, w = obstacle_map.shape
+    neigh, idx = _neighbourhood(pos_wu[None], (h, w))          # [1, 9, 2], [1, 9]
+    occupied = obstacle_map.reshape(-1)[idx[0].to(torch.int64)]
+    hit = is_colliding_tile(pos_wu[None, :], neigh[0], radius)
+    return (occupied & hit).any()
+
+
 def is_player_colliding_packed(
     obstacle_words: torch.Tensor, shape, pos_wu: torch.Tensor, radius
 ) -> torch.Tensor:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..config import EnvConfig
+from . import lut
 from .raycast import RayHits
 
 
@@ -96,3 +97,16 @@ def cast_rays_boxes(
     hit_j = torch.where(use_box, bj, wj)
     return RayHits(ray_dirs=ray_dirs, hit_tu=torch.stack([hit_i, hit_j], dim=-1),
                    hit_dim=hit_dim, dist_wu=dist)
+
+
+def cast_rays_analytic(
+    cfg: EnvConfig,
+    goal_tu: torch.Tensor,    # i32[2]
+    pos_wu: torch.Tensor,     # f32[2]
+    dir_au: torch.Tensor,     # i32[]
+) -> RayHits:
+    """The border ring plus one goal box (SingleRoom), for one env: the
+    heading's fan from ``cfg.ray_fan_lut``; ``RayHits`` of [R, ...]."""
+    dirs = lut.take_rows(torch.as_tensor(cfg.ray_fan_lut, device=pos_wu.device), dir_au)
+    hits = cast_rays_boxes(cfg, goal_tu[None, None, :], pos_wu[None], dirs[None])
+    return RayHits(*(x[0] for x in hits))

@@ -20,7 +20,8 @@ from typing import Tuple
 import torch
 
 from .. import cuda_build
-from . import raycast
+from ..config import EnvConfig
+from . import lut, raycast
 
 
 def cast_rays_pallas_batched(
@@ -63,3 +64,18 @@ def cast_rays_pallas_batched(
 
 
 cast_rays_pallas_batched.launches = 0
+
+
+def cast_rays_pallas(
+    cfg: EnvConfig,
+    obstacle_words: torch.Tensor,   # i32[NW]
+    pos_wu: torch.Tensor,           # f32[2]
+    dir_au: torch.Tensor,           # i32[]
+) -> raycast.RayHits:
+    """One env's cast through :func:`cast_rays_pallas_batched` at B=1 (the
+    DDA kernel on a CUDA tensor, the plain scan on a CPU tensor), over the
+    heading's fan from ``cfg.ray_fan_lut``; ``RayHits`` of [R, ...]."""
+    dirs = lut.take_rows(torch.as_tensor(cfg.ray_fan_lut, device=pos_wu.device), dir_au)
+    hit_tu, hit_dim, dist = cast_rays_pallas_batched(
+        obstacle_words[None], (cfg.H, cfg.W), pos_wu[None], dirs[None], cfg.dda_steps)
+    return raycast.RayHits(ray_dirs=dirs, hit_tu=hit_tu[0], hit_dim=hit_dim[0], dist_wu=dist[0])

@@ -15,9 +15,9 @@ and the port writes its few collectives out:
 Ranks are numbered row-major over ``(dp, mp)``, as the JAX mesh reshapes its
 device list: ``rank = dp_index * mp + mp_index``.  Every collective is an
 ``all_reduce`` (an all-gather is the all-reduce of a zero-padded buffer), so
-the same code runs under NCCL with one rank per card and under gloo, which
-also takes CUDA tensors, where several ranks share one card (NCCL refuses
-two ranks on one GPU).  Both transports give every rank the same reduced
+the same code runs under NCCL with one rank per card and under gloo where
+several ranks share one card (NCCL refuses two ranks on one GPU); gloo
+reduces a CUDA tensor through a host copy made on the caller's stream.  Both transports give every rank the same reduced
 bytes (each element is reduced once, then copied to every rank), which
 keeps the replicated params bit-identical across ranks.
 
@@ -114,7 +114,15 @@ class Mesh:
         if group is None:
             return t
         t0 = time.perf_counter()
-        dist.all_reduce(t, group=group)
+        if t.is_cuda and dist.get_backend(group) == "gloo":
+            # staged on the caller's stream: the copy out waits for the
+            # kernels that wrote ``t`` and every later kernel reads the sum,
+            # with no side stream of gloo's between them
+            host = t.cpu()
+            dist.all_reduce(host, group=group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, group=group)
         self.collective_ms += (time.perf_counter() - t0) * 1e3
         self.collectives += 1
         return t

@@ -34,6 +34,10 @@ And the optional leaves of the families that use them (None elsewhere):
   key_tu          int32[B, 2]   key tile (LockedRoom)
   key_held        bool[B]       key collected: the doors are gone
 
+A single-env state (``Game.*_single``) has the same leaves without the
+leading ``[B]`` axis; :meth:`EnvState.batch1` and :meth:`EnvState.unbatch`
+move between the two.
+
 ``hw`` is the static map size.  The engine has no model weights: the state
 is what carries across steps, and ``from_numpy``/``to_numpy`` move it to and
 from the JAX package's leaves (as numpy arrays) bit for bit.
@@ -115,6 +119,17 @@ class EnvState:
         """The envs ``idx`` (int[K]) of every leaf: a state of K envs."""
         return self.replace(**{k: v[idx] for k, v in self.leaves().items()})
 
+    def batch1(self) -> "EnvState":
+        """A single-env state (the JAX package's unbatched leaves: ``pos_wu``
+        f[2], ``dir_au`` [], ``rng_key`` int64[2], ...) as a batch of one
+        env: every leaf gains a leading axis of size 1."""
+        return self.replace(**{k: v[None] for k, v in self.leaves().items()})
+
+    def unbatch(self) -> "EnvState":
+        """The inverse of :meth:`batch1`: env 0 of every leaf, without the
+        env axis."""
+        return self.replace(**{k: v[0] for k, v in self.leaves().items()})
+
     @classmethod
     def from_numpy(cls, leaves: Dict[str, np.ndarray], device=None) -> "EnvState":
         """Build a state from the JAX package's ``EnvState`` leaves given as
@@ -166,6 +181,20 @@ def select(pred: torch.Tensor, on_true: EnvState, on_false: EnvState) -> EnvStat
     if t.keys() != f.keys():
         raise ValueError(f"states carry different leaves: {sorted(t)} vs {sorted(f)}")
     return on_false.replace(**{k: one(t[k], f[k]) for k in f})
+
+
+def default_device(device, what: str) -> torch.device:
+    """``device``, or the CUDA device where it is None, raising where there
+    is none: the CPU is only ever asked for, never fallen back to.
+    ``what`` names the caller in the error."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what} runs on the CUDA device by default and none is "
+                'available; pass device="cpu" to run on the CPU'
+            )
+        device = "cuda"
+    return torch.device(device)
 
 
 def tile_map(state: EnvState) -> torch.Tensor:

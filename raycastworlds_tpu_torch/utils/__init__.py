@@ -17,3 +17,7 @@ def to_numpy(x) -> np.ndarray:
     if x.dtype == torch.uint32:
         return x.view(torch.int32).cpu().numpy().view(np.uint32)
     return x.cpu().numpy()
+
+
+# The tools read to_numpy from this package, so they come after it.
+from . import checkpoint, debug, profiling, viewer  # noqa: E402, F401

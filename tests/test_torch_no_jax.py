@@ -90,6 +90,20 @@ viewer.play(env, out=io.StringIO(), window=False)
 webviewer.WebPlaySession(env).handle_key("w")
 rt.tile_map(state)
 rt.rng.fold_in(rt.rng.PRNGKey(0), 1)
+from raycastworlds_tpu_torch.models import MultiPlayerRoom, MultiPlayerConfig
+from raycastworlds_tpu_torch.parallel import PPOTrainer, rollout_random
+from raycastworlds_tpu_torch.ops import collision, raycast_analytic, raycast_pallas
+one = rt.SingleRoom(rt.EnvConfig(**small))
+s = one.step_single(one.reset_single(rt.rng.PRNGKey(0), "cpu"), 0)
+one.observe_from_hits_single(s, one.cast_single(s))
+one.observe_single(s), one.top_view_single(s), one.camera_view_single(s)
+raycast_pallas.cast_rays_pallas(one.cfg, s.wall_words, s.pos_wu, s.dir_au)
+raycast_analytic.cast_rays_analytic(one.cfg, s.goal_tu, s.pos_wu, s.dir_au)
+collision.is_player_colliding(s.wall_map, s.pos_wu, 0.125)
+mp = MultiPlayerRoom(MultiPlayerConfig(**small))
+mp.observe_single(mp.step_single(mp.reset_single(rt.rng.PRNGKey(0), "cpu"), torch.zeros(2)))
+rt.colors.rgb_to_u32(rt.colors.u32_to_rgb(rt.colors.PALETTE_NP))
+rt.config.replace(one.cfg, num_rays=4)
 tiny = ["--device", "cpu", "--num-rays", "8", "--height-px", "8"]
 with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
     rollout_demo.main(tiny + ["--num-envs", "2", "--chunk-steps", "1", "--chunks", "1"])
