@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mesh-only    # phases 1, 2 and 8
     python3 chip_smoke.py --adapters-only  # phases 1, 2 and 9
     python3 chip_smoke.py --single-only    # phases 1, 2 and 10
+    python3 chip_smoke.py --bench-only     # phases 1, 2 and 11
 
 Builds the CUDA kernels from ``raycastworlds_tpu_torch/csrc`` and drives the
 port's main paths, ``Env(Family(Config(raycast_backend=B)))`` with dense or
@@ -165,11 +166,29 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    actions; ms per single-env step on the card and on the CPU.  Then
    ``cast_rays_pallas`` (the DDA kernel at [1, 512]) equal to
    ``cast_rays_scan``.  Each kernel's B=1 shape joins the kernels' rows.
+11. the port bench (``raycastworlds_tpu_torch.bench``, ``bench_ppo``):
+   (a) every ``SUITE`` row through ``bench.run_one`` at its own widths, 8
+   steps and one rep: ``auto`` resolved to ``crossing_kernel`` (the named
+   kernel for ``config3_pal8_kernel`` and ``ref_default_pal8_kernel_4096``),
+   its kernel launched once per observation made (both players of
+   MultiPlayerRoom in one launch) and no other kernel, a positive rate and
+   a finite checksum; (b) each row again under the plain ``crossing`` from
+   the same keys, and the CLI's ``--raycast pallas`` and ``fused`` at the
+   flagship and reference-default widths against ``scan``: checksums and
+   final states identical bit for bit, so all four kernels equal their
+   plain versions through the bench's own entry; (c) ``run_ppo_row`` for
+   the three PPO rows at full width (``crossing_cast`` once per
+   observation, every loss finite), then ``run_suite`` over two rows and
+   one PPO row (one JSON line, ``summary`` last, no ``error``); (d)
+   ``python -m raycastworlds_tpu_torch.bench_ppo`` once per variant
+   (defaults, ``--trunk mlp --dtype bfloat16 --phases``, ``--recurrent
+   --game maze``, ``--game multi_player``, ``--mesh`` at one rank; 16
+   rollout steps, one timed update), each printing its JSON line.
 
 The card's name and power limit are printed again before the kernels'
 JSON record, which is the line before the last: each kernel's
 launches summed over the main paths (and the PPO rows, phase 8's runs on
-every rank and phase 9's and 10's runs) that route through it, its numbers at
+every rank and phase 9's, 10's and 11's runs) that route through it, its numbers at
 the reference-default shape and, under ``shapes``, at every main-path
 shape with its launches per step; the last line is ``{"ok": true,
 "device": {...}}``.  Any failure raises: there is no fallback, and a
@@ -2472,6 +2491,217 @@ def single_phase(device):
     return launches, per_step
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the port bench
+# ---------------------------------------------------------------------------
+
+# the bench's rows cut to this many steps and one timed rep (the warm-up
+# and the rep: 2 runs)
+BENCH_STEPS = 8
+# backend -> the kernel it launches once per observation
+BACKEND_KERNELS = {
+    "crossing_kernel": "crossing_cast",
+    "crossing_kernel_fused": "crossing_render_pal8",
+    "pallas": "dda_cast",
+    "fused": "dda_render_u32",
+}
+# bench_ppo's variants, cut to 16 rollout steps and one timed update
+BENCH_PPO_VARIANTS = [
+    [],
+    ["--trunk", "mlp", "--dtype", "bfloat16", "--phases"],
+    ["--recurrent", "--game", "maze"],
+    ["--game", "multi_player"],
+    ["--mesh"],
+]
+
+
+def bench_run(kw, device, raycast=None):
+    """``bench.run_one`` of a ``SUITE`` row's kwargs ``kw`` at BENCH_STEPS
+    steps and one rep (under ``raycast`` where given), counted: (its row,
+    its final env state, launches by kernel).  The final state is caught
+    by wrapping the bench's ``steps_per_second_program`` for the call."""
+    from raycastworlds_tpu_torch import bench
+
+    kw = dict(kw, steps=BENCH_STEPS, reps=1)
+    if raycast is not None:
+        kw["raycast"] = raycast
+    program = bench.steps_per_second_program
+    final = {}
+
+    def catching(env, steps):
+        run = program(env, steps)
+
+        def wrapped(state, key):
+            state, acc = run(state, key)
+            final["state"] = state
+            return state, acc
+
+        return wrapped
+
+    bench.steps_per_second_program = catching
+    try:
+        row, launches = counted(lambda: bench.run_one(**kw, device=device))
+    finally:
+        bench.steps_per_second_program = program
+    return row, final["state"], launches
+
+
+def bench_rows_phase(device) -> dict:
+    """11a-b: every ``SUITE`` row through ``bench.run_one`` at its own
+    widths, then the CLI's ``--raycast pallas`` and ``fused`` at the
+    flagship and reference-default widths.  Each run: ``auto`` resolved to
+    ``crossing_kernel`` (the row's named backend otherwise), its kernel
+    launched once per observation made (the reset's, then one per step of
+    the warm-up and the rep; one launch for both players of
+    MultiPlayerRoom) and no other kernel, a positive rate and a finite
+    checksum; then the same row under its plain backend (``crossing``;
+    ``scan`` for the DDA kernels) from the same keys, launching no kernel:
+    checksum and final state identical bit for bit.  Returns the kernel
+    runs' launches, by kernel."""
+    from raycastworlds_tpu_torch import bench
+
+    suite = dict(bench.SUITE)
+    cases = [(name, kw, None) for name, kw in bench.SUITE] + [
+        (name, suite[name], raycast)
+        for name in ("flagship_single_room_4096", "ref_default_res_512x256")
+        for raycast in ("pallas", "fused")]
+    observations = 1 + 2 * BENCH_STEPS
+    launches = {name: 0 for name in KERNELS}
+    for name, kw, raycast in cases:
+        row, state, n = bench_run(kw, device, raycast)
+        named = raycast or kw.get("raycast", "auto")
+        backend = row["config"]["resolved_backend"]
+        check(backend == ("crossing_kernel" if named == "auto" else named),
+              f"bench {name}: {named} resolved to {backend}")
+        kernel = BACKEND_KERNELS[backend]
+        want = {k: (observations if k == kernel else 0) for k in KERNELS}
+        check(n == want, f"bench {name} [{backend}]: kernel launches {n} for "
+                         f"{observations} observations, expected {want}")
+        check(row["value"] > 0 and math.isfinite(row["checksum"]),
+              f"bench {name} [{backend}]: value {row['value']}, checksum {row['checksum']}")
+        plain = "scan" if kernel.startswith("dda") else "crossing"
+        p_row, p_state, p_n = bench_run(kw, device, plain)
+        check(not any(p_n.values()), f"bench {name} [{plain}]: kernel launches {p_n}")
+        check(p_row["checksum"] == row["checksum"] and same_state(p_state, state),
+              f"bench {name}: {backend} and {plain} differ (checksums "
+              f"{row['checksum']!r}, {p_row['checksum']!r})")
+        launches[kernel] += n[kernel]
+        print(f"bench {name} [{backend}]: {kernel} launches {n[kernel]} "
+              f"({observations} observations), no other kernel; checksum "
+              f"{row['checksum']!r} == {plain}'s, final states equal; "
+              f"{row['value']} env-steps/s ({plain} {p_row['value']}) at "
+              f"{BENCH_STEPS} steps, roofline {row['roofline']['binding']} "
+              f"{row['roofline']['frac_of_roofline']}")
+    return launches
+
+
+def bench_ppo_rows_phase(device) -> int:
+    """11c: ``bench.run_ppo_row`` for each of ``PPO_ROWS`` at full width,
+    counted: ``crossing_cast`` once per observation (the reset's, then one
+    warm-up and 6 timed updates) and no other kernel, every update's loss
+    finite; then ``bench.run_suite`` over two env rows (cut to BENCH_STEPS
+    steps, one rep) and the first PPO row: one JSON line, ``summary`` its
+    last key, no row with ``error``, the same launches.  Returns the
+    crossing cast's launches."""
+    import contextlib
+    import io
+
+    from raycastworlds_tpu_torch import bench
+    from raycastworlds_tpu_torch.parallel.ppo import PPOTrainer
+    from raycastworlds_tpu_torch.parallel.ppo_rnn import RecurrentPPOTrainer
+
+    losses = []
+    steps = {cls: cls.train_step for cls in (PPOTrainer, RecurrentPPOTrainer)}
+
+    def recording(train_step):
+        def wrapped(self, ts):
+            ts, metrics = train_step(self, ts)
+            losses.append(metrics["loss"])
+            return ts, metrics
+        return wrapped
+
+    def per_row(kw):
+        return 64 + (1 if kw.get("recurrent") else 2)
+
+    total = 0
+    for cls, fn in steps.items():
+        cls.train_step = recording(fn)
+    try:
+        for kw in bench.PPO_ROWS:
+            losses.clear()
+            row, n = counted(lambda: bench.run_ppo_row(**kw, device=device))
+            updates = 7
+            total += expect_crossing(kw["name"], n, 1 + updates * per_row(kw))
+            loss = [float(x) for x in losses]
+            check(len(loss) == updates and all(math.isfinite(x) for x in loss),
+                  f"bench {kw['name']}: losses {loss}")
+            check(row["value"] > 0, f"bench {kw['name']}: value {row['value']}")
+            print(f"bench {kw['name']}: {row['value']} env-steps/s through the train step "
+                  f"({row['seconds']} s for 6 updates), crossing_cast launches "
+                  f"{n['crossing_cast']} (1 + {updates} x {per_row(kw)}), no other kernel; "
+                  f"last loss {loss[-1]!r}")
+    finally:
+        for cls, fn in steps.items():
+            cls.train_step = fn
+
+    rows = [(name, dict(kw, steps=BENCH_STEPS, reps=1)) for name, kw in bench.SUITE[:2]]
+    ppo = bench.PPO_ROWS[:1]
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        result, n = counted(lambda: bench.run_suite(rows, ppo, device=device))
+    lines = stdout.getvalue().strip().splitlines()
+    check(len(lines) == 1 and json.loads(lines[0]) == result,
+          f"run_suite printed {len(lines)} lines")
+    check(list(result)[-1] == "summary", f"run_suite keys {list(result)}")
+    check(not any("error" in row for row in result["rows"]),
+          f"run_suite errors: {[r for r in result['rows'] if 'error' in r]}")
+    want = len(rows) * (1 + 2 * BENCH_STEPS) + 1 + 7 * per_row(ppo[0])
+    total += expect_crossing("run_suite", n, want)
+    print(f"bench run_suite ({len(rows)} rows, 1 PPO row): one JSON line, summary last "
+          f"{json.dumps(result['summary'])}; crossing_cast launches {n['crossing_cast']}")
+    return total
+
+
+def bench_ppo_cli_phase() -> None:
+    """11d: ``python -m raycastworlds_tpu_torch.bench_ppo`` once per
+    variant of BENCH_PPO_VARIANTS (its default widths, 16 rollout steps, one
+    timed update; ``--mesh`` at one rank): each prints its JSON line, on
+    the card, with the variant's config."""
+    for args in BENCH_PPO_VARIANTS:
+        argv = args + ["--rollout-steps", "16", "--updates", "1"]
+        out = subprocess.run(
+            [sys.executable, "-m", "raycastworlds_tpu_torch.bench_ppo", *argv],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        check(out.returncode == 0, f"bench_ppo {argv}: {out.stderr[-2000:]}")
+        lines = out.stdout.strip().splitlines()
+        check(len(lines) == 1, f"bench_ppo {argv}: {len(lines)} lines")
+        row = json.loads(lines[0])
+        cfg = row["config"]
+        check(row["value"] > 0 and cfg["n_devices"] == 1 and cfg["device"] != "cpu"
+              and cfg["recurrent"] == ("--recurrent" in args)
+              and ("phases" in row) == ("--phases" in args),
+              f"bench_ppo {argv}: {lines[0]}")
+        print(f"bench_ppo {' '.join(argv)}: {lines[0]}")
+
+
+def bench_phase(device) -> dict:
+    """Phase 11: the port bench (11a-d), each sub-phase's seconds printed.
+    Returns the launches, by kernel."""
+    seconds = {}
+    t0 = time.perf_counter()
+    launches = bench_rows_phase(device)
+    seconds["ab"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["crossing_cast"] += bench_ppo_rows_phase(device)
+    seconds["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bench_ppo_cli_phase()
+    seconds["d"] = time.perf_counter() - t0
+    print("phase 11 seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; total {sum(seconds.values()):.1f}")
+    return launches
+
+
 def finish(smi, record=None) -> None:
     """The last lines: the card's name and power limit (``smi``) again, so
     that they stand beside the numbers, ``record``'s JSON, and the ok line."""
@@ -2494,8 +2724,9 @@ def main() -> None:
     mesh_only = sys.argv[1:] == ["--mesh-only"]
     adapters_only = sys.argv[1:] == ["--adapters-only"]
     single_only = sys.argv[1:] == ["--single-only"]
-    check(times_only or mesh_only or adapters_only or single_only or not sys.argv[1:],
-          f"unknown arguments {sys.argv[1:]}")
+    bench_only = sys.argv[1:] == ["--bench-only"]
+    check(times_only or mesh_only or adapters_only or single_only or bench_only
+          or not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     sys.path.insert(0, ROOT)
     import raycastworlds_tpu_torch as rt
     from raycastworlds_tpu_torch import cuda_build
@@ -2540,6 +2771,10 @@ def main() -> None:
         launches, per_step = single_phase(device)
         finish(smi, {"single_launches": launches,
                      "times": shape_rows(device, single_paths(), per_step)})
+        return
+
+    if bench_only:
+        finish(smi, {"bench_launches": bench_phase(device)})
         return
 
     paths = main_paths()
@@ -2624,6 +2859,11 @@ def main() -> None:
     for name, n in single_launches.items():
         launches[name] += n
     rows += shape_rows(device, single_paths(), single_per_step)
+
+    # 11. the port bench: every row through each kernel, == the plain
+    # backends, the PPO rows, run_suite, bench_ppo's variants
+    for name, n in bench_phase(device).items():
+        launches[name] += n
 
     finish(smi, {"kernels": [
         {

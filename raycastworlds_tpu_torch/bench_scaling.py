@@ -27,65 +27,16 @@ import time
 
 import torch
 
-from . import (
-    DynamicRoom,
-    DynamicRoomConfig,
-    Env,
-    EnvConfig,
-    LockedRoom,
-    LockedRoomConfig,
-    Maze,
-    MazeConfig,
-    MultiGoalConfig,
-    MultiGoalRoom,
-    MultiPlayerConfig,
-    MultiPlayerRoom,
-    RandomRoom,
-    RandomRoomConfig,
-    SingleRoom,
-    rng,
-)
+from . import Env, rng
+from .bench import build_env
 from .parallel import mesh as mesh_lib
 from .parallel.rollout import steps_per_second_program
 
 
-def build_env(game: str = "single_room", num_envs: int = 4096, num_rays: int = 64,
-              height_px: int = 64, obs: str = "camera_u32", map_h: int = 0, map_w: int = 0,
-              reset_budget: int = 0, device=None, mesh=None, *,
-              raycast: str = "auto") -> Env:
-    """The JAX bench's ``build_env`` for one workload row (``bench.py``),
-    untextured; ``raycast`` is the raycast backend (``auto`` by default)."""
-    kw = dict(num_rays=num_rays, height_camera_view_pu=height_px, obs_type=obs,
-              raycast_backend=raycast)
-    maps = {}
-    if map_h:
-        maps["height_tile_map_tu"] = map_h
-    if map_w:
-        maps["width_tile_map_tu"] = map_w
-    if game == "random_room":
-        g = RandomRoom(RandomRoomConfig(height_tile_map_tu=map_h or 16,
-                                        width_tile_map_tu=map_w or 16, **kw))
-    elif game == "maze":
-        g = Maze(MazeConfig(height_tile_map_tu=map_h or 17, width_tile_map_tu=map_w or 17,
-                            **kw))
-    else:
-        families = {
-            "single_room": (SingleRoom, EnvConfig),
-            "multi_goal": (MultiGoalRoom, MultiGoalConfig),
-            "locked_room": (LockedRoom, LockedRoomConfig),
-            "dynamic_room": (DynamicRoom, DynamicRoomConfig),
-            "multi_player": (MultiPlayerRoom, MultiPlayerConfig),
-        }
-        if game not in families:
-            raise ValueError(f"unknown game {game}")
-        family, config = families[game]
-        g = family(config(**kw, **maps))
-    return Env(g, num_envs=num_envs, reset_budget=reset_budget, device=device, mesh=mesh)
-
-
 def measure(env: Env, steps: int, reps: int = 3) -> float:
     """Env-steps/s (global envs) of ``steps_per_second_program``: reset,
-    one warm-up run, then the best of ``reps`` timed runs."""
+    one warm-up run, then the best of ``reps`` timed runs, rep ``r`` keyed
+    by ``fold_in(key, r)``."""
     run = steps_per_second_program(env, steps)
     state, _ = env.reset(rng.PRNGKey(0))
     key = rng.PRNGKey(1)
@@ -94,7 +45,7 @@ def measure(env: Env, steps: int, reps: int = 3) -> float:
     best = float("inf")
     for r in range(reps):
         t0 = time.perf_counter()
-        state, acc = run(state, rng.split(key, reps)[r])
+        state, acc = run(state, rng.fold_in(key, r))
         float(acc)
         best = min(best, time.perf_counter() - t0)
     return env.num_envs * steps / best
@@ -126,8 +77,10 @@ def main(argv=None) -> dict:
         mesh = mesh_lib.make_mesh(devices=None if args.device is None else [args.device] * world)
 
         def make(num_envs, budget, m=None):
-            return build_env(args.game, num_envs, args.num_rays, args.height_px, args.obs,
-                             args.map_h, args.map_w, budget, mesh.device, m)
+            return build_env(game=args.game, num_envs=num_envs, num_rays=args.num_rays,
+                             height_px=args.height_px, obs=args.obs, map_h=args.map_h,
+                             map_w=args.map_w, reset_budget=budget, device=mesh.device,
+                             mesh=m)
 
         sps1 = None
         if mesh.rank == 0:
@@ -144,7 +97,7 @@ def main(argv=None) -> dict:
                 "height_px": args.height_px,
                 "backend": mesh.device.type,
             },
-            "steps_per_sec_1dev": sps1,
+            "steps_per_sec_1dev": None if sps1 is None else round(sps1, 1),
         }
         if world > 1:
             envs = make(args.envs_per_device * world, args.reset_budget * world, mesh)
@@ -152,10 +105,10 @@ def main(argv=None) -> dict:
             if mesh.rank == 0:
                 eff = sps_n / (sps1 * world)
                 result.update({
-                    "steps_per_sec_Ndev": sps_n,
-                    "value": eff,
+                    "steps_per_sec_Ndev": round(sps_n, 1),
+                    "value": round(eff, 4),
                     "unit": "weak-scaling efficiency (1.0 = linear)",
-                    "vs_baseline": eff / 0.8,
+                    "vs_baseline": round(eff / 0.8, 4),
                 })
         else:
             result.update({"value": 1.0, "unit": "single device (no scaling measured)",

@@ -20,7 +20,7 @@ import raycastworlds_tpu_torch.parallel.params
 import raycastworlds_tpu_torch.train
 import raycastworlds_tpu_torch.utils.checkpoint
 import raycastworlds_tpu_torch.utils.webviewer
-from raycastworlds_tpu_torch import bench_scaling, dryrun
+from raycastworlds_tpu_torch import bench, bench_ppo, bench_scaling, dryrun
 from raycastworlds_tpu_torch.parallel import mesh as mesh_lib, ppo, ppo_rnn
 for backend in ("auto", "fused"):
     cfg = rt.EnvConfig(num_rays=8, height_camera_view_pu=8, raycast_backend=backend)
@@ -111,6 +111,9 @@ with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO(
     profile_step.main(tiny + ["--num-envs", "2", "--steps", "1", "--trace-dir", d + "/t"])
     profile_ppo.main(tiny + ["--num-envs", "2", "--rollout-steps", "2", "--hidden", "8",
                              "--trunk", "mlp", "--reps", "1"])
+    bench.main(tiny + ["--num-envs", "2", "--steps", "1", "--reps", "1"])
+    bench_ppo.main(tiny + ["--num-envs", "2", "--rollout-steps", "2", "--updates", "1",
+                           "--hidden", "8", "--trunk", "mlp"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "raycastworlds_tpu"))
 print(",".join(bad))
