@@ -237,8 +237,22 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+def launch_counts() -> dict:
+    """name -> the kernel's launches in this process so far (the tracer's
+    ``kernel_launches.<name>``, counted by ``cuda_build.launch``)."""
+    from raycastworlds_tpu_torch.utils import profiling
+
+    return {name: profiling.total(f"kernel_launches.{name}") for name in KERNELS}
+
+
+def launches_since(before: dict) -> dict:
+    """name -> the kernel's launches since ``launch_counts()`` read ``before``."""
+    now = launch_counts()
+    return {name: now[name] - before[name] for name in KERNELS}
+
+
 def wrappers():
-    """name -> the kernel's wrapper (which carries ``.launches``)."""
+    """name -> the kernel's wrapper."""
     from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
     from raycastworlds_tpu_torch.ops import raycast_pallas, render_fused
 
@@ -591,7 +605,6 @@ def observed_inputs(name, game, num_envs, device):
         calls.append((args, kwargs))
         return fn(*args, **kwargs)
 
-    record.launches = 0  # the wrapper counts its launch on its module's name
     setattr(module, fn.__name__, record)
     try:
         keys = rt.rng.split(rt.rng.PRNGKey(SEED, device), num_envs)
@@ -706,8 +719,6 @@ def golden_phase(device) -> None:
     equal to tests/data/golden_frames.npz (the port's CPU frames equal them
     too, tests/test_torch_golden.py)."""
     import raycastworlds_tpu_torch as rt
-    from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
-
     golden = np.load(os.path.join(ROOT, "tests", "data", "golden_frames.npz"))
     games = {
         "single_room": rt.SingleRoom(rt.EnvConfig(num_rays=64, height_camera_view_pu=48)),
@@ -719,9 +730,9 @@ def golden_phase(device) -> None:
         "top_view": rt.SingleRoom(rt.EnvConfig(num_rays=32, pu_per_tu=8, obs_type="top_u32")),
     }
     for name, game in games.items():
-        before = rck.cast_rays_crossing_kernel.launches
+        before = launch_counts()
         frame = golden_frame(game, device)
-        check(rck.cast_rays_crossing_kernel.launches > before,
+        check(launches_since(before)["crossing_cast"] > 0,
               f"golden frame {name} did not go through the kernel")
         check(frame.dtype == golden[name].dtype and np.array_equal(frame, golden[name]),
               f"golden frame {name} differs from tests/data/golden_frames.npz")
@@ -879,8 +890,8 @@ def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, 
                     turns=True, reset_budget=0, memory=False) -> dict:
     """The kernel path against each plain path on one card: kernel, the
     plains, the plains again in reverse and the kernel again (``turns``),
-    or kernel then plains.  Every count is set to 0 just before the first
-    kernel run and read just after it: ``kernel`` must have launched once
+    or kernel then plains.  Every count is read just before the first
+    kernel run and just after it: ``kernel`` must have launched once
     per observation made and every other kernel never (``kernel`` None: no
     kernel at all).  Every run must end in the first run's state and
     checksum; for ``kernel`` None (the analytic cast, whose distances are
@@ -894,18 +905,16 @@ def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, 
     import torch
 
     kcfg = dataclasses.replace(cfg, raycast_backend=kernel_backend)
-    counters = wrappers()
     if memory:
         torch.cuda.reset_peak_memory_stats(device)
-    for fn in counters.values():
-        fn.launches = 0
+    before = launch_counts()
     k_state, k_sum, obs, k_s, budget = run_main_path(
         game, kcfg, num_envs, STEPS, device, reset_budget)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = launches_since(before)
     if memory:
         print(f"main path {label}: peak device memory "
               f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
-    want = {name: (STEPS + 1 if name == kernel else 0) for name in counters}
+    want = {name: (STEPS + 1 if name == kernel else 0) for name in KERNELS}
     check(launches == want,
           f"{label}: kernel launches {launches} for {STEPS + 1} observations, "
           f"expected {want}")
@@ -949,19 +958,17 @@ def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, 
 def plain_path_phase(label, cfg, device, num_envs=4096, small=64, steps=16) -> None:
     """A config that no kernel takes: SingleRoom ``cfg`` at ``num_envs``
     envs, reset plus STEPS steps of the throughput program, launches no
-    kernel (every count set to 0 just before and read just after); then at
+    kernel (every count read just before and just after); then at
     ``small`` envs over ``steps`` random steps the card's states and frames
     equal the CPU's, exactly."""
     import torch
 
     import raycastworlds_tpu_torch as rt
 
-    counters = wrappers()
-    for fn in counters.values():
-        fn.launches = 0
+    before = launch_counts()
     state, checksum, obs, seconds, _ = run_main_path(rt.SingleRoom, cfg, num_envs, STEPS,
                                                      device)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = launches_since(before)
     check(not any(launches.values()), f"{label}: kernels launched {launches}")
     check(tuple(obs.shape) == (num_envs,) + cfg.obs_shape and math.isfinite(checksum),
           f"{label}: obs {tuple(obs.shape)}, checksum {checksum}")
@@ -998,16 +1005,14 @@ def large_map_phase(device, num_envs=64, steps=4) -> None:
                        height_camera_view_pu=64)
     check(cfg.resolved_raycast_backend(device.type) == "crossing",
           "auto takes a kernel for a 640x640 map")
-    counters = wrappers()
-    for fn in counters.values():
-        fn.launches = 0
+    before = launch_counts()
     env = rt.Env(rt.SingleRoom(cfg), num_envs=num_envs, device=device)
     state, obs = env.reset(rt.rng.PRNGKey(SEED))
     for q in range(steps):
         res = env.step(state, env.sample_action(rt.rng.PRNGKey(SEED + q)))
         state, obs = res.state, res.obs
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = launches_since(before)
     check(not any(launches.values()), f"large map: kernels launched {launches}")
     check(tuple(obs.shape) == (num_envs, 64, 64), f"large map: obs {tuple(obs.shape)}")
     print(f"large map 640x640 ({-(-640 * 640 // 32)} words > cap {cap}): auto -> crossing, "
@@ -1142,8 +1147,8 @@ def time_phases(trainer, keep_rollout=False):
 def ppo_row_phase(row, device) -> dict:
     """PPO row ``row`` at full width: ``init``, one warm-up ``train_step``
     and PPO_TIMED_UPDATES timed ones (the timed region ends on the host read
-    of the last metrics).  Every count is set to 0 just before ``init`` and
-    read after the last step: ``crossing_cast`` must have launched once per
+    of the last metrics).  Every count is read just before ``init`` and
+    after the last step: ``crossing_cast`` must have launched once per
     observation (the reset's, then observations_per_update per step) and
     no other kernel at all.  The metrics and params must be finite and every
     param tensor must have moved.  Prints env-steps/s, the two phases' ms
@@ -1152,12 +1157,10 @@ def ppo_row_phase(row, device) -> dict:
 
     import raycastworlds_tpu_torch as rt
 
-    counters = wrappers()
     trainer = ppo_trainer(row, device)
     time_phases(trainer)
     torch.cuda.reset_peak_memory_stats(device)
-    for fn in counters.values():
-        fn.launches = 0
+    before = launch_counts()
     ts0 = trainer.init(rt.rng.PRNGKey(SEED))
     ts, metrics = trainer.train_step(ts0)
     float(metrics["loss"])
@@ -1166,11 +1169,11 @@ def ppo_row_phase(row, device) -> dict:
         ts, metrics = trainer.train_step(ts)
     metrics = {k: float(v) for k, v in metrics.items()}
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = launches_since(before)
     per_update = observations_per_update(trainer)
     updates = 1 + PPO_TIMED_UPDATES
     want = {name: (1 + updates * per_update if name == "crossing_cast" else 0)
-            for name in counters}
+            for name in KERNELS}
     check(launches == want, f"{row}: kernel launches {launches} for 1 + {updates} x "
                             f"{per_update} observations, expected {want}")
     check(all(math.isfinite(v) for v in metrics.values()), f"{row}: metrics {metrics}")
@@ -1406,8 +1409,8 @@ def mesh_env(task, device, mesh=None):
 
 def mesh_env_task(task, device, mesh=None) -> dict:
     """Reset + the throughput program (``MESH_ENV_STEPS`` steps for
-    ``"env"``, ``MESH_BUDGET_STEPS`` for ``"budget"``), every count set to 0
-    just before the reset: the assembled final state's leaves (numpy), the
+    ``"env"``, ``MESH_BUDGET_STEPS`` for ``"budget"``), every count read
+    just before the reset and after the run: the assembled final state's leaves (numpy), the
     checksum, the budgeted resets and the launches."""
     import torch
 
@@ -1418,16 +1421,14 @@ def mesh_env_task(task, device, mesh=None) -> dict:
     env = mesh_env(task, device, mesh)
     if env.reset_budget:
         count_budgeted_resets(env)
-    counters = wrappers()
-    for fn in counters.values():
-        fn.launches = 0
+    before = launch_counts()
     state, _ = env.reset(rt.rng.PRNGKey(SEED))
     steps = MESH_ENV_STEPS if task == "env" else MESH_BUDGET_STEPS
     state, acc = rollout.steps_per_second_program(env, steps)(state, rt.rng.PRNGKey(SEED + 1))
     checksum = float(acc)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    want = {name: (steps + 1 if name == "crossing_cast" else 0) for name in counters}
+    launches = launches_since(before)
+    want = {name: (steps + 1 if name == "crossing_cast" else 0) for name in KERNELS}
     check(launches == want, f"mesh {task}: kernel launches {launches}, expected {want}")
     resets = getattr(env, "resets", None)
     if mesh is not None:
@@ -1499,9 +1500,7 @@ def mesh_train_task(task, device, num_envs=None, mesh=None, nudge=False) -> dict
 
     trainer = mesh_trainer(task, device, num_envs or MESH_ENVS, mesh)
     time_phases(trainer, keep_rollout=True)
-    counters = wrappers()
-    for fn in counters.values():
-        fn.launches = 0
+    before = launch_counts()
     ts0 = trainer.init(rt.rng.PRNGKey(SEED))
     if nudge:
         w = ts0.params["trunk.weight"]
@@ -1550,9 +1549,9 @@ def mesh_train_task(task, device, num_envs=None, mesh=None, nudge=False) -> dict
     if mesh is not None:
         out["collectives"] = mesh.collectives - c0
         out["collective_ms"] = mesh.collective_ms - ms0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = launches_since(before)
     per_update = observations_per_update(trainer)
-    want = {name: (1 + 2 * per_update if name == "crossing_cast" else 0) for name in counters}
+    want = {name: (1 + 2 * per_update if name == "crossing_cast" else 0) for name in KERNELS}
     check(launches == want, f"mesh {task}: kernel launches {launches} for 1 + 2 x "
                             f"{per_update} observations, expected {want}")
     check(all(math.isfinite(v) for v in out["metrics"].values()),
@@ -1759,16 +1758,14 @@ def flagship_cfg(**kw):
 
 
 def counted(fn):
-    """Every count set to 0 just before ``fn()`` and read just after it:
+    """Every count read just before ``fn()`` and just after it:
     (its result, launches by kernel)."""
     import torch
 
-    counters = wrappers()
-    for f in counters.values():
-        f.launches = 0
+    before = launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: f.launches for name, f in counters.items()}
+    return out, launches_since(before)
 
 
 def expect_crossing(label, launches, want) -> int:

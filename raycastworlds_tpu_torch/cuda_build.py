@@ -23,6 +23,8 @@ import tempfile
 
 import torch
 
+from .utils import profiling
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -162,8 +164,14 @@ def kernel_library(device, n_words: int, b: int, r: int, what: str,
 
 def launch(entry, device, *args, what: str) -> None:
     """Call the C entry ``entry(*args, stream)`` on ``device``'s current
-    stream and raise if it reports a CUDA error (a refused launch)."""
-    with torch.cuda.device(device):
+    stream and raise if it reports a CUDA error (a refused launch).  The
+    one place every kernel is launched: inside the span
+    ``rcw.kernel.<kernel>``, counted as ``kernel_launches.<kernel>``, where
+    ``<kernel>`` is the entry's name without ``rcw_`` (``crossing_cast``,
+    ``crossing_render_pal8``, ``dda_cast``, ``dda_render_u32``)."""
+    kernel = entry.__name__.removeprefix("rcw_")
+    with profiling.span(f"rcw.kernel.{kernel}"), torch.cuda.device(device):
         err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    profiling.count(f"kernel_launches.{kernel}")

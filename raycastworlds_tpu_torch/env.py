@@ -31,6 +31,7 @@ import torch
 from . import rng
 from .models.base import Game
 from .state import EnvState, default_device, select
+from .utils import profiling
 
 if TYPE_CHECKING:
     from .parallel.mesh import Mesh
@@ -146,9 +147,11 @@ class Env:
         state = self.game.reset_batch(keys)
         return state, self.game.observe_batch(state)
 
+    @profiling.span("rcw.env.step")
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
         game = self.game
-        stepped = game.step_batch(state, action.to(self.device, torch.int32))
+        with profiling.span("rcw.game.step_batch"):
+            stepped = game.step_batch(state, action.to(self.device, torch.int32))
         frozen = state.pending_reset if self.reset_budget > 0 else None
         if frozen is not None:
             # envs awaiting a budgeted reset discard their step
@@ -167,6 +170,7 @@ class Env:
         else:
             truncated = torch.zeros_like(terminated)
         ep_end = terminated | truncated
+        profiling.count_device("episodes_ended", ep_end)
         info = {
             "terminal_t": stepped.t,
             "episode_return": stepped.episode_return,
@@ -174,18 +178,24 @@ class Env:
             "truncated": truncated,
         }
         if self.auto_reset and self.final_obs_in_info:
-            info["final_observation"] = game.observe_batch(stepped)
+            info["final_observation"] = self._observe(stepped)
         if not self.auto_reset:
             nxt = stepped.replace(done=ep_end)
         else:
-            if frozen is not None:
-                nxt = self._budgeted_reset(stepped, frozen | ep_end)
-            else:
-                nxt = select(ep_end, game.reset_batch(stepped.rng_key), stepped)
+            with profiling.span("rcw.env.reset"):
+                if frozen is not None:
+                    nxt = self._budgeted_reset(stepped, frozen | ep_end)
+                else:
+                    profiling.count("reset_rows", self.local_envs)
+                    nxt = select(ep_end, game.reset_batch(stepped.rng_key), stepped)
             # reward/done of the ending transition survive the reset; done
             # marks the episode boundary (terminated or truncated).
             nxt = nxt.replace(reward=stepped.reward, done=ep_end)
-        return StepResult(nxt, game.observe_batch(nxt), stepped.reward, ep_end, info)
+        return StepResult(nxt, self._observe(nxt), stepped.reward, ep_end, info)
+
+    def _observe(self, state: EnvState) -> torch.Tensor:
+        with profiling.span("rcw.game.observe_batch"):
+            return self.game.observe_batch(state)
 
     def _budgeted_reset(self, stepped: EnvState, needs: torch.Tensor) -> EnvState:
         """Reset the first ``reset_budget`` envs flagged in ``needs`` (in
@@ -204,6 +214,7 @@ class Env:
         rank still resets at most ``reset_budget`` rows.
         """
         k = self.reset_budget
+        profiling.count("reset_rows", k)
         cnt = torch.cumsum(needs.to(torch.int32), dim=0)
         slot = cnt - 1
         left = k

@@ -10,13 +10,16 @@ budgeted auto-reset, every observation reduced to a checksum on the device)
 of one bench row (``bench_scaling.build_env``; the flagship row by default:
 SingleRoom, 4096 envs x 64 rays x 64 px, camera_u32, ``auto``) once to warm
 up, once timed on the host clock alone, and once under
-``utils/profiling.trace``.  Then it sums the trace's kernels by name
+``utils/profiling.trace``, which turns the port's tracer on, so the
+trace holds its spans.  Then it sums the trace's kernels by name
 (``aggregate_trace``) and prints one JSON line: the wall ms per step, the
 device ms per step and the busy share (device / wall), the device time
-launched inside the reset (``reset_batch``) and inside the threefry hash
-(``threefry``), and the top ``--top`` kernels with their ms, calls, ns per
-env-step and share of device time.  On the CPU the "kernels" are
-torch.profiler's CPU operators, which nest, so their shares overlap.
+launched inside the auto-reset (``reset_batch``: the span
+``rcw.env.reset``, the dense reset with its select) and inside the
+threefry hash (``threefry``: the span ``rcw.rng.threefry``), and the top
+``--top`` kernels with their ms, calls, ns per env-step and share of
+device time.  On the CPU the "kernels" are torch.profiler's CPU operators,
+which nest, so their shares overlap.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def main(argv=None) -> dict:
     from raycastworlds_tpu_torch import rng
     from raycastworlds_tpu_torch.bench_scaling import build_env
     from raycastworlds_tpu_torch.parallel.rollout import steps_per_second_program
-    from raycastworlds_tpu_torch.utils.profiling import aggregate_trace, annotate, trace
+    from raycastworlds_tpu_torch.utils.profiling import aggregate_trace, trace
 
     env = build_env(args.game, args.num_envs, args.num_rays, args.height_px, args.obs,
                     reset_budget=args.reset_budget, device=args.device, raycast=args.raycast)
@@ -69,24 +72,16 @@ def main(argv=None) -> dict:
     float(acc)
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    # label the resets and the threefry hash for the profiled run only
-    game, hash_fn = env.game, rng.threefry2x32
-    game.reset_batch = annotate("reset_batch")(type(game).reset_batch.__get__(game))
-    rng.threefry2x32 = annotate("threefry")(hash_fn)
     shutil.rmtree(args.trace_dir, ignore_errors=True)
-    try:
-        with trace(args.trace_dir):
-            t0 = time.perf_counter()
-            state, acc = run(state, key)
-            float(acc)
-            profiled_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    finally:
-        del game.reset_batch
-        rng.threefry2x32 = hash_fn
+    with trace(args.trace_dir):
+        t0 = time.perf_counter()
+        state, acc = run(state, key)
+        float(acc)
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    labels = ("reset_batch", "threefry")
+    spans = {"reset_batch": "rcw.env.reset", "threefry": "rcw.rng.threefry"}
     us, calls, within = aggregate_trace(args.trace_dir, "kernel" if cuda else "cpu_op",
-                                        within=labels)
+                                        within=list(spans.values()))
     total = sum(us.values())
     denom = args.num_envs * args.steps
     device_ms = total / 1e3 / args.steps
@@ -107,9 +102,9 @@ def main(argv=None) -> dict:
         "busy": device_ms / wall_ms,
         "kernels_per_step": sum(calls.values()) / args.steps,
         "ns_per_env_step_total": total * 1e3 / denom,
-        "within": {name: {"ms_per_step": within[name] / 1e3 / args.steps,
-                          "pct": 100.0 * within[name] / total if total else 0.0}
-                   for name in labels},
+        "within": {label: {"ms_per_step": within[name] / 1e3 / args.steps,
+                           "pct": 100.0 * within[name] / total if total else 0.0}
+                   for label, name in spans.items()},
         "kernels": rows,
     }
     print(json.dumps(out))

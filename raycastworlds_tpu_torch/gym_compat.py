@@ -23,7 +23,7 @@ from . import rng
 from .colors import u32_to_rgb
 from .env import Env
 from .models.base import Game
-from .utils import to_numpy
+from .utils import profiling, to_numpy
 
 
 def _single_agent(game: Game, name: str, what: str) -> None:
@@ -57,19 +57,22 @@ class GymAdapter:
         self._state, obs = self._env.reset(k_reset)
         return to_numpy(obs[0]), {}
 
+    @profiling.span("rcw.gym.step")
     def step(self, action: int):
         if self._state is None:
             raise RuntimeError("call reset() before step()")
         res = self._env.step(self._state, torch.tensor([int(action)], dtype=torch.int32))
         self._state = res.state
-        info = {k: to_numpy(v[0]) for k, v in res.info.items()}
+        with profiling.span("rcw.gym.to_host"):
+            info = {k: to_numpy(v[0]) for k, v in res.info.items()}
+            obs, reward = to_numpy(res.obs[0]), float(res.reward[0])
         terminated = bool(info["terminated"])
         truncated = bool(info["truncated"]) or (
             self._max_steps is not None
             and int(res.state.t[0]) >= self._max_steps
             and not terminated
         )
-        return to_numpy(res.obs[0]), float(res.reward[0]), terminated, truncated, info
+        return obs, reward, terminated, truncated, info
 
     def render(self) -> np.ndarray:
         """uint8 RGB frame [H, W, 3] of the camera view."""
@@ -123,6 +126,7 @@ class GymVectorAdapter:
         self._state, obs = self._env.reset(k_reset)
         return to_numpy(obs), {}
 
+    @profiling.span("rcw.gym.step")
     def step(self, actions):
         if self._state is None:
             raise RuntimeError("call reset() before step()")
@@ -130,14 +134,10 @@ class GymVectorAdapter:
             actions = torch.from_numpy(np.asarray(actions).astype(np.int32))
         res = self._env.step(self._state, actions)
         self._state = res.state
-        info = {k: to_numpy(v) for k, v in res.info.items()}
-        return (
-            to_numpy(res.obs),
-            to_numpy(res.reward),
-            info["terminated"],
-            info["truncated"],
-            info,
-        )
+        with profiling.span("rcw.gym.to_host"):
+            info = {k: to_numpy(v) for k, v in res.info.items()}
+            obs, reward = to_numpy(res.obs), to_numpy(res.reward)
+        return obs, reward, info["terminated"], info["truncated"], info
 
     def render(self) -> np.ndarray:
         """uint8 RGB frames [N, H, W, 3] of the camera views."""

@@ -30,6 +30,7 @@ from ..ops import bitmap, collision, lut, raycast, raycast_analytic, render, sam
 from ..ops import raycast_crossing_kernel as rck
 from ..ops import render_fused, topview
 from ..state import EnvState, default_device
+from ..utils import profiling
 
 
 class Game:
@@ -195,6 +196,7 @@ class Game:
         interior are disabled slots."""
         return state.goal_tu[:, None, :]
 
+    @profiling.span("rcw.game.cast_batch")
     def cast_batch(self, state: EnvState) -> raycast.RayHits:
         """Ray-cast every env's pose through the backend the config resolves
         for the state's device; ``analytic`` takes the closed-form cast where

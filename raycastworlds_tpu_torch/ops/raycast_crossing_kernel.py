@@ -8,7 +8,8 @@ The port of the JAX package's Pallas kernels of the same module name:
   same cast on a mirror-ordered fan fused with the pal8 camera render
   (backend ``crossing_kernel_fused``).
 
-For a CUDA tensor each wrapper launches its kernel; for a CPU tensor it runs
+For a CUDA tensor each wrapper launches its kernel (through
+``cuda_build.launch``, which counts it); for a CPU tensor it runs
 the kernel's plain PyTorch version (``*_ref``), which the tests hold against
 the JAX package and ``chip_smoke.py`` holds the kernel against on the card.
 There is no fallback: any other device, a dtype or shape the kernel does
@@ -95,8 +96,6 @@ def cast_rays_crossing_kernel(
     """Batch crossing cast.  Returns (hit_tu i32[B, R, 2], hit_dim i32[B, R],
     dist f32[B, R]).  Any B >= 1 and any R; raises where the map's words
     exceed what the kernel's shared memory holds.
-
-    ``cast_rays_crossing_kernel.launches`` counts kernel launches.
     """
     raycast.check_cast_inputs(obstacle_words, shape, pos_wu, ray_dirs)
     dev = pos_wu.device
@@ -118,11 +117,7 @@ def cast_rays_crossing_kernel(
         hit_tu.data_ptr(), hit_dim.data_ptr(), dist.data_ptr(),
         b, r, h, w, obstacle_words.shape[1], what="crossing cast",
     )
-    cast_rays_crossing_kernel.launches += 1
     return hit_tu, hit_dim, dist
-
-
-cast_rays_crossing_kernel.launches = 0
 
 
 def cast_render_pal8_kernel_ref(
@@ -173,8 +168,6 @@ def cast_render_pal8_kernel(
     ``num`` and ``denom`` are the float32 render constants
     (:func:`render.render_constants`).  Valid where the obstacle map is the
     walls plus the goal tile, which lies on an empty tile.
-
-    ``cast_render_pal8_kernel.launches`` counts kernel launches.
     """
     raycast.check_cast_inputs(obstacle_words, shape, pos_wu, ray_dirs_flipped)
     raycast.check_env_tensor("player_dir", player_dir, pos_wu, torch.float32, (2,))
@@ -204,8 +197,4 @@ def cast_render_pal8_kernel(
         goal_tu.data_ptr(), img.data_ptr(), b, r, h, w, nw, hpu, num, denom,
         what="crossing cast + pal8 render",
     )
-    cast_render_pal8_kernel.launches += 1
     return img
-
-
-cast_render_pal8_kernel.launches = 0

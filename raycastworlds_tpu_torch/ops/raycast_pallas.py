@@ -34,8 +34,6 @@ def cast_rays_pallas_batched(
     """Batch DDA over ``max_steps`` steps.  Returns (hit_tu i32[B, R, 2],
     hit_dim i32[B, R], dist f32[B, R]).  Any B >= 1 and any R; raises where
     the map's words exceed what the kernel's shared memory holds.
-
-    ``cast_rays_pallas_batched.launches`` counts kernel launches.
     """
     raycast.check_cast_inputs(obstacle_words, shape, pos_wu, ray_dirs)
     if max_steps < 0:
@@ -59,11 +57,7 @@ def cast_rays_pallas_batched(
         hit_tu.data_ptr(), hit_dim.data_ptr(), dist.data_ptr(),
         b, r, h, w, nw, max_steps, what="DDA cast",
     )
-    cast_rays_pallas_batched.launches += 1
     return hit_tu, hit_dim, dist
-
-
-cast_rays_pallas_batched.launches = 0
 
 
 def cast_rays_pallas(

@@ -31,6 +31,7 @@ import torch
 
 from .. import colors
 from ..config import EnvConfig
+from ..utils import profiling
 from . import bitmap
 from .raycast import RayHits
 
@@ -431,6 +432,7 @@ def pal8_to_u32(img: torch.Tensor, palette=None) -> torch.Tensor:
     return table[img.to(torch.int64)].view(torch.uint32)
 
 
+@profiling.span("rcw.ops.render_observation")
 def render_observation(
     cfg: EnvConfig, wall_words, goal_tu, player_dir_wu, hits: RayHits,
     block_words=None, goal_words=None, pos_wu=None,

@@ -57,8 +57,6 @@ def render_camera_fused_batched(
     """int32[B, hpu, R] 0x00RRGGBB camera views, march and render in one
     kernel.  ``num_f`` and ``denom_f`` are the float32 render constants
     (:func:`render.render_constants`).
-
-    ``render_camera_fused_batched.launches`` counts kernel launches.
     """
     raycast.check_cast_inputs(obstacle_words, shape, pos_wu, ray_dirs_flipped)
     nw = obstacle_words.shape[1]
@@ -94,11 +92,7 @@ def render_camera_fused_batched(
         b, r, h, w, nw, max_steps, hpu, num_f, denom_f,
         what="DDA + u32 render",
     )
-    render_camera_fused_batched.launches += 1
     return img
-
-
-render_camera_fused_batched.launches = 0
 
 
 def render_camera_fused(

@@ -30,6 +30,8 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .utils import profiling
+
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -38,6 +40,7 @@ def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
     return ((v << r) | (v >> (32 - r))) & _MASK
 
 
+@profiling.span("rcw.rng.threefry")
 def threefry2x32(k0, k1, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 block cipher (20 rounds), elementwise over
     broadcastable int64 operands holding uint32 values."""

@@ -24,6 +24,7 @@ import torch
 
 from raycastworlds_tpu_torch.ops import raycast, raycast_crossing_kernel as rck
 from raycastworlds_tpu_torch.ops.bitmap import pack_bits_np
+from raycastworlds_tpu_torch.utils import profiling
 
 
 def fuzz_case(h, w, b, r, seed, diagonal=False):
@@ -102,9 +103,9 @@ def test_kernel_wrapper_cpu_matches_pallas_interpret(h, w):
         lambda ww, p, d: jraycast.cast_rays_crossing(ww, (h, w), p, d)
     ))(*args)
     wt, pt, dt = _torch(words, pos, dirs)
-    before = rck.cast_rays_crossing_kernel.launches
+    before = profiling.total("kernel_launches.crossing_cast")
     got = _np(rck.cast_rays_crossing_kernel(wt, (h, w), pt, dt))
-    assert rck.cast_rays_crossing_kernel.launches == before  # CPU: no launch
+    assert profiling.total("kernel_launches.crossing_cast") == before  # CPU: no launch
     for want in (pallas, xla):
         for g, wnt in zip(got, want):
             np.testing.assert_array_equal(g, np.asarray(wnt))
@@ -149,10 +150,10 @@ def cuda_device():
 def test_cuda_kernel_matches_plain(cuda_device, h, w, b, r):
     words, pos, dirs = fuzz_case(h, w, b, r, seed=4, diagonal=True)
     args = _torch(words, pos, dirs, cuda_device)
-    before = rck.cast_rays_crossing_kernel.launches
+    before = profiling.total("kernel_launches.crossing_cast")
     got = rck.cast_rays_crossing_kernel(args[0], (h, w), *args[1:])
     torch.cuda.synchronize()
-    assert rck.cast_rays_crossing_kernel.launches == before + 1
+    assert profiling.total("kernel_launches.crossing_cast") == before + 1
     want = rck.cast_rays_crossing_kernel_ref(args[0], (h, w), *args[1:])
     for g, wnt in zip(_np(got), _np(want)):
         np.testing.assert_array_equal(g, wnt)

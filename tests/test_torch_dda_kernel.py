@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from raycastworlds_tpu_torch.ops import raycast, raycast_pallas
+from raycastworlds_tpu_torch.utils import profiling
 from test_torch_crossing import SHAPES, _np, _torch, fuzz_case
 
 
@@ -45,9 +46,9 @@ def test_wrapper_cpu_matches_pallas_interpret(h, w):
     words, pos, dirs = no_zero_case(h, w, 8, 64, seed=20)
     want = _jax_pallas(words, pos, dirs, (h, w), h + w)
     wt, pt, dt = _torch(words, pos, dirs)
-    before = raycast_pallas.cast_rays_pallas_batched.launches
+    before = profiling.total("kernel_launches.dda_cast")
     got = _np(raycast_pallas.cast_rays_pallas_batched(wt, (h, w), pt, dt, h + w))
-    assert raycast_pallas.cast_rays_pallas_batched.launches == before  # CPU: no launch
+    assert profiling.total("kernel_launches.dda_cast") == before  # CPU: no launch
     for g, wnt in zip(got, want):
         np.testing.assert_array_equal(g, wnt)
 
@@ -109,10 +110,10 @@ def cuda_device():
 def test_cuda_kernel_matches_plain(cuda_device, h, w, b, r, steps):
     words, pos, dirs = fuzz_case(h, w, b, r, seed=24, diagonal=True)
     args = _torch(words, pos, dirs, cuda_device)
-    before = raycast_pallas.cast_rays_pallas_batched.launches
+    before = profiling.total("kernel_launches.dda_cast")
     got = raycast_pallas.cast_rays_pallas_batched(args[0], (h, w), *args[1:], steps)
     torch.cuda.synchronize()
-    assert raycast_pallas.cast_rays_pallas_batched.launches == before + 1
+    assert profiling.total("kernel_launches.dda_cast") == before + 1
     want = raycast.cast_rays_scan(args[0], (h, w), *args[1:], steps)
     for g, wnt in zip(_np(got), _np(want)):
         np.testing.assert_array_equal(g, wnt)

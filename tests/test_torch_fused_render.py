@@ -25,6 +25,7 @@ import torch
 import raycastworlds_tpu_torch as rt
 from raycastworlds_tpu_torch.ops import render, render_fused
 from raycastworlds_tpu_torch.ops.bitmap import pack_bits_np
+from raycastworlds_tpu_torch.utils import profiling
 
 MAX_ULP = 4
 
@@ -107,9 +108,9 @@ def test_wrapper_cpu_matches_pallas_interpret(kw, blocks):
         cfg.dda_steps, cfg.height_camera_view_pu, c["num"], c["denom"],
         block_words=jnp.asarray(c["block"]) if blocks else None,
     )
-    before = render_fused.render_camera_fused_batched.launches
+    before = profiling.total("kernel_launches.dda_render_u32")
     got = _port_fused(c, blocks)
-    assert render_fused.render_camera_fused_batched.launches == before  # CPU: no launch
+    assert profiling.total("kernel_launches.dda_render_u32") == before  # CPU: no launch
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
 
@@ -292,10 +293,10 @@ def test_cuda_kernel_matches_plain(cuda_device, kw, sliding, blocks):
     args = (d(c["obstacle"]), d(c["wall"]), (cfg.H, cfg.W), d(c["pos"]), d(c["pdir"]),
             d(c["dirs"]), cfg.dda_steps, cfg.height_camera_view_pu, c["num"],
             c["denom"], d(c["block"]) if blocks else None)
-    before = render_fused.render_camera_fused_batched.launches
+    before = profiling.total("kernel_launches.dda_render_u32")
     got = render_fused.render_camera_fused_batched(*args)
     torch.cuda.synchronize()
-    assert render_fused.render_camera_fused_batched.launches == before + 1
+    assert profiling.total("kernel_launches.dda_render_u32") == before + 1
     want = render_fused.render_camera_fused_batched_ref(*args)
     assert torch.equal(got, want)
 

@@ -20,6 +20,7 @@ import torch
 import raycastworlds_tpu_torch as rt
 from raycastworlds_tpu_torch.ops import raycast, render
 from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
+from raycastworlds_tpu_torch.utils import profiling
 from test_torch_fused_render import (
     OBS, assert_obs_equal, assert_rollouts_equal, observe_both, render_case, t,
 )
@@ -66,9 +67,9 @@ def test_wrapper_cpu_matches_pallas_interpret(kw):
         jnp.asarray(c["dirs"]), jnp.asarray(c["pdir"]), jnp.asarray(c["goal"]),
         cfg.height_camera_view_pu, c["num"], c["denom"], interpret=True,
     )
-    before = rck.cast_render_pal8_kernel.launches
+    before = profiling.total("kernel_launches.crossing_render_pal8")
     got = rck.cast_render_pal8_kernel(*_args(c))
-    assert rck.cast_render_pal8_kernel.launches == before  # CPU: no launch
+    assert profiling.total("kernel_launches.crossing_render_pal8") == before  # CPU: no launch
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -131,10 +132,10 @@ def cuda_device():
 def test_cuda_kernel_matches_plain(cuda_device, kw, sliding):
     c = _single_goal_case(kw, 16, seed=43, sliding=sliding)
     args = _args(c, cuda_device)
-    before = rck.cast_render_pal8_kernel.launches
+    before = profiling.total("kernel_launches.crossing_render_pal8")
     got = rck.cast_render_pal8_kernel(*args)
     torch.cuda.synchronize()
-    assert rck.cast_render_pal8_kernel.launches == before + 1
+    assert profiling.total("kernel_launches.crossing_render_pal8") == before + 1
     assert torch.equal(got, rck.cast_render_pal8_kernel_ref(*args))
 
 

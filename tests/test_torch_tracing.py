@@ -1,0 +1,317 @@
+"""The port's tracer (``utils/profiling.py``): spans and counters at the
+layer boundaries of ``Env.step`` and the adapters, off by default.
+
+On the CPU at 16 rays x 16 px: off, a step records nothing and enters no
+``record_function``; on, the spans nest with the right parents and step
+ids, lie inside their ``record_function`` events of a ``profiling.trace``
+on the trace's clock, and the counters (``reset_rows``, ``episodes_ended``,
+``host_copy_bytes``, ``kernel_launches.<kernel>``) count what the step did;
+states, observations, rewards and dones are the same bit for bit with the
+tracer on and off.  Imports no JAX (the ``cuda`` test runs on the card).
+"""
+
+import contextlib
+import json
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import raycastworlds_tpu_torch as rt
+from raycastworlds_tpu_torch import cuda_build
+from raycastworlds_tpu_torch.utils import profiling
+
+SMALL = dict(num_rays=16, height_camera_view_pu=16)
+
+
+@pytest.fixture(autouse=True)
+def fresh_tracer():
+    profiling.disable()
+    profiling.clear()
+    yield
+    profiling.disable()
+    profiling.clear()
+
+
+def _env(num_envs=4, reset_budget=0, device="cpu", **cfg):
+    game = rt.SingleRoom(rt.EnvConfig(**SMALL, **cfg))
+    return rt.Env(game, num_envs=num_envs, device=device, reset_budget=reset_budget)
+
+
+def _actions(env, t):
+    return env.sample_action(rt.rng.PRNGKey(100 + t))
+
+
+def _run(env, steps, key=3):
+    """Reset and ``steps`` steps: every step's result."""
+    state, _ = env.reset(rt.rng.PRNGKey(key))
+    out = []
+    for t in range(steps):
+        res = env.step(state, _actions(env, t))
+        out.append(res)
+        state = res.state
+    return out
+
+
+def _named(spans, name):
+    return [i for i, s in enumerate(spans) if s.name == name]
+
+
+def _summed(name, within=None):
+    """The recorded counts of ``name``, summed; ``within``: only those
+    recorded inside a span so named (or its descendants)."""
+    spans = profiling.spans()
+
+    def inside(i):
+        while i >= 0:
+            if spans[i].name == within:
+                return True
+            i = spans[i].parent
+        return False
+
+    return sum(c.value for c in profiling.counts()
+               if c.name == name and (within is None or inside(c.span)))
+
+
+def _raise(*args, **kwargs):
+    raise AssertionError("record_function entered")
+
+
+def test_off_by_default_and_off_records_nothing(monkeypatch):
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _raise)
+    assert not profiling.enabled()
+    env = _env()
+    _run(env, 2)
+    adapter = rt.GymVectorAdapter(env.game, 4, device="cpu")
+    adapter.reset(seed=1)
+    before = profiling.total("host_copy_bytes")
+    adapter.step(np.zeros(4, np.int32))
+    assert profiling.spans() == [] and profiling.counts() == []
+    # the totals still count: the counters are a plain integer add
+    assert profiling.total("host_copy_bytes") > before
+
+
+def test_span_is_a_context_manager_and_a_decorator():
+    @profiling.span("t.outer")
+    def outer():
+        with profiling.span("t.inner"):
+            profiling.count("t.things", 3)
+        return 7
+
+    assert outer() == 7 and outer.__name__ == "outer"
+    assert profiling.spans() == []
+    profiling.enable()
+    assert outer() == 7
+    profiling.disable()
+    spans = profiling.spans()
+    assert [s.name for s in spans] == ["t.outer", "t.inner"]
+    assert spans[0].parent == -1 and spans[1].parent == 0
+    assert spans[0].step == spans[1].step
+    assert spans[0].start_ns <= spans[1].start_ns <= spans[1].end_ns <= spans[0].end_ns
+    assert profiling.counts() == [profiling.CountRecord(1, "t.things", 3)]
+    assert profiling.total("t.things") == 6  # counted on and off
+    assert profiling.annotate("t.outer") is profiling.span("t.outer")
+
+
+def test_record_is_bounded_and_clear_keeps_totals(monkeypatch):
+    monkeypatch.setattr(profiling, "CAPACITY", 3)
+    monkeypatch.setattr(profiling, "DEVICE_CAPACITY", 1)
+    profiling.enable()
+    for _ in range(5):
+        with profiling.span("t.s"):
+            profiling.count("t.n")
+            profiling.count_device("t.d", torch.ones(2, dtype=torch.bool))
+    assert len(profiling.spans()) == 3 and len(profiling.counts()) == 3
+    # counts share one capacity: 2 spans, 3 host counts and 4 device counts
+    # (one tensor kept at most) left out
+    assert profiling.dropped() == 9
+    assert _summed("t.d") == 2
+    profiling.clear()
+    assert profiling.spans() == [] and profiling.dropped() == 0
+    assert profiling.total("t.n") == 5
+
+
+def test_env_step_spans_nest_with_parents_and_step_ids():
+    env = _env()
+    state, _ = env.reset(rt.rng.PRNGKey(3))
+    actions = [_actions(env, t) for t in range(2)]
+    profiling.enable()
+    for a in actions:
+        state = env.step(state, a).state
+    profiling.disable()
+    spans = profiling.spans()
+    roots = _named(spans, "rcw.env.step")
+    assert len(roots) == 2 and all(spans[i].parent == -1 for i in roots)
+    assert spans[roots[0]].step != spans[roots[1]].step
+    parent_of = {"rcw.game.step_batch": "rcw.env.step", "rcw.env.reset": "rcw.env.step",
+                 "rcw.game.observe_batch": "rcw.env.step",
+                 "rcw.game.cast_batch": "rcw.game.observe_batch",
+                 "rcw.ops.render_observation": "rcw.game.observe_batch"}
+    for child, parent in parent_of.items():
+        found = _named(spans, child)
+        assert len(found) == 2, child
+        for i in found:
+            assert spans[spans[i].parent].name == parent, child
+    # the dense reset draws through threefry, inside rcw.env.reset
+    threefry = _named(spans, "rcw.rng.threefry")
+    assert threefry
+    for i in threefry:
+        up = spans[i].parent
+        while spans[up].name != "rcw.env.reset":
+            up = spans[up].parent
+            assert up >= 0
+    for i, s in enumerate(spans):
+        assert s.start_ns <= s.end_ns
+        root = i
+        while spans[root].parent >= 0:
+            p = spans[spans[root].parent]
+            assert p.start_ns <= spans[root].start_ns and spans[root].end_ns <= p.end_ns
+            root = spans[root].parent
+        assert spans[root].name == "rcw.env.step" and s.step == spans[root].step
+
+
+def test_adapter_step_spans():
+    adapter = rt.GymVectorAdapter(rt.SingleRoom(rt.EnvConfig(**SMALL)), 4, device="cpu")
+    adapter.reset(seed=2)
+    profiling.enable()
+    adapter.step(np.array([0, 1, 2, 3], np.int32))
+    profiling.disable()
+    spans = profiling.spans()
+    (root,) = _named(spans, "rcw.gym.step")
+    assert spans[root].parent == -1
+    for name in ("rcw.env.step", "rcw.gym.to_host"):
+        (i,) = _named(spans, name)
+        assert spans[i].parent == root
+    assert {s.step for s in spans} == {spans[root].step}
+
+
+def test_spans_lie_inside_their_trace_events(tmp_path):
+    env = _env()
+    state, _ = env.reset(rt.rng.PRNGKey(5))
+    with profiling.trace(str(tmp_path)):
+        for t in range(2):
+            state = env.step(state, _actions(env, t)).state
+    assert not profiling.enabled()  # trace() put the switch back
+    with open(tmp_path / profiling.TRACE_FILE) as f:
+        doc = json.load(f)
+    base = doc["baseTimeNanoseconds"]
+    events = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            events.setdefault(e["name"], []).append(e)
+    spans = profiling.spans()
+    names = {s.name for s in spans}
+    assert {"rcw.env.step", "rcw.env.reset", "rcw.rng.threefry"} <= names
+    for name in names:
+        mine = [s for s in spans if s.name == name]
+        theirs = sorted(events.get(name, []), key=lambda e: e["ts"])
+        assert len(mine) == len(theirs), name
+        for s, e in zip(mine, theirs):
+            start = profiling.trace_us(s.start_ns, base)
+            end = profiling.trace_us(s.end_ns, base)
+            assert e["ts"] - 50 <= start <= end <= e["ts"] + e["dur"] + 50, name
+
+
+@pytest.mark.parametrize("budget", [0, 3])
+def test_reset_rows(budget):
+    env = _env(num_envs=8, reset_budget=budget)
+    before = profiling.total("reset_rows")
+    profiling.enable()
+    _run(env, 3)
+    profiling.disable()
+    rows = budget or 8
+    assert profiling.total("reset_rows") - before == 3 * rows
+    assert _summed("reset_rows", within="rcw.env.reset") == 3 * rows
+
+
+def test_episodes_ended_is_the_sum_of_done():
+    env = _env(num_envs=8, max_episode_steps=3)
+    profiling.enable()
+    results = _run(env, 7)
+    profiling.disable()
+    want = sum(int(r.done.sum()) for r in results)
+    assert want > 0
+    assert _summed("episodes_ended", within="rcw.env.step") == want
+
+
+def test_host_copy_bytes_of_an_adapter_step():
+    adapter = rt.GymVectorAdapter(rt.SingleRoom(rt.EnvConfig(**SMALL)), 4, device="cpu")
+    adapter.reset(seed=4)
+    before = profiling.total("host_copy_bytes")
+    profiling.enable()
+    obs, reward, terminated, truncated, info = adapter.step(np.zeros(4, np.int32))
+    profiling.disable()
+    want = obs.nbytes + reward.nbytes + sum(v.nbytes for v in info.values())
+    assert terminated is info["terminated"] and truncated is info["truncated"]
+    assert profiling.total("host_copy_bytes") - before == want
+    assert _summed("host_copy_bytes", within="rcw.gym.to_host") == want
+
+
+def test_kernel_launch_is_spanned_and_counted(monkeypatch):
+    """``cuda_build.launch`` with a stand-in entry and stream (no card)."""
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    calls = []
+
+    def rcw_stand_in(*args):
+        calls.append(args)
+        return len(calls) - 1  # 0 (launched) the first time, an error after
+
+    before = profiling.total("kernel_launches.stand_in")
+    profiling.enable()
+    with profiling.span("t.caller"):
+        cuda_build.launch(rcw_stand_in, "cpu", 1, 2, what="stand-in")
+    with pytest.raises(RuntimeError, match="stand-in kernel launch failed"):
+        cuda_build.launch(rcw_stand_in, "cpu", 1, 2, what="stand-in")
+    profiling.disable()
+    assert calls == [(1, 2, 0), (1, 2, 0)]
+    assert profiling.total("kernel_launches.stand_in") == before + 1  # a refused one: no
+    spans = profiling.spans()
+    first = _named(spans, "rcw.kernel.stand_in")[0]
+    assert spans[spans[first].parent].name == "t.caller"
+    assert _summed("kernel_launches.stand_in", within="t.caller") == 1
+
+
+@pytest.mark.parametrize("budget", [0, 3])
+def test_same_results_with_tracing_on_and_off(budget):
+    env = _env(num_envs=8, reset_budget=budget, max_episode_steps=4)
+    off = _run(env, 6)
+    profiling.enable()
+    on = _run(env, 6)
+    profiling.disable()
+    for a, b in zip(off, on):
+        for x, y in zip((a.obs, a.reward, a.done), (b.obs, b.reward, b.done)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        x, y = a.state.to_numpy(), b.state.to_numpy()
+        assert sorted(x) == sorted(y)
+        for k in x:
+            assert x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]), k
+    adapters = [rt.GymVectorAdapter(env.game, 4, device="cpu") for _ in range(2)]
+    for a in adapters:
+        a.reset(seed=9)
+    got_off = adapters[0].step(np.arange(4, dtype=np.int32) % 4)
+    profiling.enable()
+    got_on = adapters[1].step(np.arange(4, dtype=np.int32) % 4)
+    profiling.disable()
+    for x, y in zip(got_off[:4], got_on[:4]):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_span_inside_the_cast():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    env = _env(num_envs=64, device="cuda")
+    state, _ = env.reset(rt.rng.PRNGKey(3))
+    before = profiling.total("kernel_launches.crossing_cast")
+    profiling.enable()
+    env.step(state, _actions(env, 0))
+    torch.cuda.synchronize()
+    profiling.disable()
+    assert profiling.total("kernel_launches.crossing_cast") == before + 1
+    spans = profiling.spans()
+    (k,) = _named(spans, "rcw.kernel.crossing_cast")
+    assert spans[spans[k].parent].name == "rcw.game.cast_batch"
