@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py                # every phase below
-    python3 chip_smoke.py --times-only   # phases 1, 2 and the kernel times
+    python3 chip_smoke.py --times-only   # phases 1, 2 and the kernel times (threefry's too)
     python3 chip_smoke.py --mesh-only    # phases 1, 2 and 8
     python3 chip_smoke.py --adapters-only  # phases 1, 2 and 9
     python3 chip_smoke.py --single-only    # phases 1, 2 and 10
@@ -25,6 +25,15 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    the crossing and DDA casts also at 1 and 80 rays per env and on a
    336x336 map at 2 rays (the crossing cast's block layouts); then each
    kernel's times and bound at the reference-default shape (as in phase 6);
+   then the threefry kernel at each main path's own draws, recorded as
+   the program makes them: a reset and THREEFRY_STEPS steps of each
+   family's main path at its own batch (SingleRoom 4096 envs first), a
+   train step of each PPO row (its categorical and permutation), and rank
+   1's sharded draws of phase 8's dp = 2 mesh; every distinct hash equal
+   to the plain path (``rng.threefry2x32``) on the card and on the CPU,
+   one launch a hash, each path's launches per step read over its steps,
+   and its hashes' times and bound (int32 operations over 64 x 132 x
+   1.98e9 a second, or bytes);
 4. the golden frames of tests/data/golden_frames.npz ("single_room", its
    checker, brick and xor textured twins, "multi_player" and "top_view",
    pinned from the JAX package) reproduced through the crossing kernel;
@@ -144,9 +153,9 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    ``validate_state`` and ``checked`` on (a)'s final state, a NaN state
    throwing; (g) ``examples/profile_step`` at the flagship row (its JSON
    line: top kernels, wall and device ms, busy share, the resets' and
-   threefry's share); (h) ``examples/profile_ppo`` at
-   ppo_train_step_mlp_bf16 (its JSON line).  The profiler must see
-   ``crossing_cast_kernel`` in (a), (c) and (g).
+   threefry's share), threefry launched 8 times a step by the reset; (h)
+   ``examples/profile_ppo`` at ppo_train_step_mlp_bf16 (its JSON line).
+   The profiler must see ``crossing_cast_kernel`` in (a), (c) and (g).
 10. the single-env Game API (``Game.reset_single``, ``step_single``,
    ``observe_single``), each family's reset (the player then placed facing
    its goal) plus 64 steps of seeded actions, the first three forward,
@@ -190,10 +199,12 @@ JSON record, which is the line before the last: each kernel's
 launches summed over the main paths (and the PPO rows, phase 8's runs on
 every rank and phase 9's, 10's and 11's runs) that route through it, its numbers at
 the reference-default shape and, under ``shapes``, at every main-path
-shape with its launches per step; the last line is ``{"ok": true,
-"device": {...}}``.  Any failure raises: there is no fallback, and a
-machine without a CUDA device, or a directory without the package, exits
-non-zero before printing a result.
+shape with its launches per step, and last the threefry kernel's (its
+launches summed over the same runs, its numbers at SingleRoom's 4096-env
+main path and, under ``shapes``, at every path of phase 3's rows); the last
+line is ``{"ok": true, "device": {...}}``.  Any failure raises: there is
+no fallback, and a machine without a CUDA device, or a directory without
+the package, exits non-zero before printing a result.
 """
 
 from __future__ import annotations
@@ -230,6 +241,19 @@ KERNELS = {
     "dda_render_u32": ("raycastworlds_tpu_torch/csrc/dda_render_u32.cu",
                        "raycastworlds_tpu/ops/render_fused.py:62"),
 }
+# The threefry hash's kernel, which replaces no Pallas kernel (jax.random's
+# threefry is XLA's, fused into one op there); integer operations of the
+# hash per element (20 rounds of add, rotate and xor, 5 key injections of 3
+# adds, 3 to set up: the counter's index arithmetic, which an unsharded draw
+# does not need, is left out); the H100 SXM's int32 issue rate, 64 lanes a
+# clock per SM x 132 SMs x 1.98 GHz
+THREEFRY = ("raycastworlds_tpu_torch/csrc/threefry.cu",
+            "none: jax.random's threefry, which XLA fuses into one op")
+THREEFRY_OPS = 78
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# the threefry kernel's launches in the runs whose other kernels' launches
+# main() sums (phases 5 and 7-11): read just before and just after each
+MAIN_THREEFRY = [0]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -239,15 +263,22 @@ def check(cond: bool, msg: str) -> None:
 
 def launch_counts() -> dict:
     """name -> the kernel's launches in this process so far (the tracer's
-    ``kernel_launches.<name>``, counted by ``cuda_build.launch``)."""
+    ``kernel_launches.<name>``, counted by ``cuda_build.launch``), for
+    KERNELS and threefry."""
     from raycastworlds_tpu_torch.utils import profiling
 
-    return {name: profiling.total(f"kernel_launches.{name}") for name in KERNELS}
+    return {name: profiling.total(f"kernel_launches.{name}")
+            for name in (*KERNELS, "threefry")}
 
 
-def launches_since(before: dict) -> dict:
-    """name -> the kernel's launches since ``launch_counts()`` read ``before``."""
+def launches_since(before: dict, main_run: bool = False) -> dict:
+    """name -> each of KERNELS' launches since ``launch_counts()`` read
+    ``before``.  ``main_run``: the window is a main-path run whose launches
+    main() sums, and threefry's launches in it are added to
+    MAIN_THREEFRY."""
     now = launch_counts()
+    if main_run:
+        MAIN_THREEFRY[0] += now["threefry"] - before["threefry"]
     return {name: now[name] - before[name] for name in KERNELS}
 
 
@@ -472,10 +503,10 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(name, fn, launches: int = PROFILED_LAUNCHES) -> float:
-    """Median device time of one launch of kernel ``name`` (the CUDA
-    function ``{name}_kernel``), from torch.profiler's CUDA activity over
-    ``launches`` calls of ``fn`` after a warm-up.  The profiler can drop
+def device_ms(name, fn, launches: int = PROFILED_LAUNCHES, reduce=np.median) -> float:
+    """Median (or ``reduce``) device time of one launch of kernel ``name``
+    (the CUDA function ``{name}_kernel``), from torch.profiler's CUDA
+    activity over ``launches`` calls of ``fn`` after a warm-up.  The profiler can drop
     kernel records from a window; windows are repeated (at most 5) until
     ``launches`` durations are in.  The last trace is kept under
     TRACE_DIR."""
@@ -500,7 +531,7 @@ def device_ms(name, fn, launches: int = PROFILED_LAUNCHES) -> float:
                  if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"
                  and f"{name}_kernel" in e.get("name", "")]
         if len(durs) >= launches:
-            return float(np.median(durs)) / 1e3
+            return float(reduce(durs)) / 1e3
     raise RuntimeError(f"chip_smoke check failed: the profiler saw {len(durs)} launches "
                        f"of {name}_kernel in 5 windows of {launches}")
 
@@ -589,6 +620,207 @@ def reference_rows(device) -> dict:
     return {name: measure(name, "reference default 8x16 B=4096 R=512 hpu 256 (fuzz maps)",
                           args[name])
             for name in KERNELS}
+
+
+class plain_rng:
+    """Within ``with plain_rng():`` every draw takes the plain path
+    (``rng.threefry2x32``), on the card too."""
+
+    def __enter__(self):
+        from raycastworlds_tpu_torch import rng
+
+        self.real = rng._uses_kernel
+        rng._uses_kernel = lambda key: False
+
+    def __exit__(self, *exc):
+        from raycastworlds_tpu_torch import rng
+
+        rng._uses_kernel = self.real
+
+
+class recorded_hashes:
+    """Within ``with recorded_hashes() as seen:`` every hash the kernel
+    computes is recorded in the dict ``seen`` once per (keys' leading
+    shape, geometry, pair): a copy of its first keys, the geometry and
+    pair."""
+
+    def __enter__(self):
+        from raycastworlds_tpu_torch import rng
+
+        self.real, seen = rng._hash_kernel, {}
+
+        def recording(key, g, pair):
+            seen.setdefault((tuple(key.shape[:-1]), g, pair), (key.clone(), g, pair))
+            return self.real(key, g, pair)
+
+        rng._hash_kernel = recording
+        return seen
+
+    def __exit__(self, *exc):
+        from raycastworlds_tpu_torch import rng
+
+        rng._hash_kernel = self.real
+
+
+def threefry_total() -> int:
+    """The threefry kernel's launches in this process so far."""
+    from raycastworlds_tpu_torch.utils import profiling
+
+    return profiling.total("kernel_launches.threefry")
+
+
+def plain_hash(key, g, pair):
+    """The hash of geometry ``g`` through the rng draw it comes from: a lone
+    element at counter ``g.start`` > 0 is ``fold_in``, any other the draw of
+    the global shape (and shard and axis) that ``g`` describes; on the path
+    that the key's device and ``plain_rng`` pick."""
+    from raycastworlds_tpu_torch import rng
+
+    n = int(np.prod(g.local, dtype=np.int64))
+    if g.local == () and g.start:
+        check(pair, f"threefry: a lone counter {g.start} hashed without pair")
+        return rng.fold_in(key, g.start)
+    if g.inner == 1 and g.start == 0 and g.local_len == g.global_len == n:
+        return rng._hash(key, g.local, pair=pair)
+    for axis, size in enumerate(g.local):
+        if size == g.local_len and int(np.prod(g.local[axis + 1:], dtype=np.int64)) == g.inner:
+            shape = g.local[:axis] + (g.global_len,) + g.local[axis + 1:]
+            return rng._hash(key, shape, (g.start, g.start + g.local_len), axis, pair)
+    raise RuntimeError(f"chip_smoke check failed: no draw has the geometry {g}")
+
+
+def hash_row(label, hashes, launches_per_step) -> dict:
+    """The recorded ``hashes`` of one path: each the kernel's against the
+    plain path's on the card and on the CPU, exact, one launch each; then
+    replayed together, the kernel's mean device ms per launch (device_ms),
+    the wrapper's host ms per hash (time_ms over 20 replays), the plain
+    path's ms per hash, and the mean bound of a hash (the larger of its
+    bytes, keys read and outputs written, over HBM_BYTES_PER_S and of
+    THREEFRY_OPS an element over INT32_OPS_PER_S)."""
+    import torch
+
+    from raycastworlds_tpu_torch import rng
+
+    kernel = lambda: [rng._hash_kernel(k, g, pair) for k, g, pair in hashes]  # noqa: E731
+    plain = lambda: [plain_hash(k, g, pair) for k, g, pair in hashes]  # noqa: E731
+    before = threefry_total()
+    got = kernel()
+    torch.cuda.synchronize()
+    n = threefry_total() - before
+    check(n == len(hashes), f"threefry at {label}: {n} launches for {len(hashes)} hashes")
+    with plain_rng():
+        want = plain()
+    for (k, g, pair), a, b in zip(hashes, got, want):
+        what = f"threefry at {label}: {len(k.shape) - 1}-d keys {tuple(k.shape[:-1])}, {g}"
+        check(torch.equal(a, b), f"{what}: kernel != plain on the card")
+        check(torch.equal(a.cpu(), plain_hash(k.cpu(), g, pair)), f"{what}: card != CPU")
+    dev = device_ms("threefry", kernel, reduce=np.mean)
+    host = time_ms(kernel, 20) / len(hashes)
+    with plain_rng():
+        plain_ms = time_ms(plain, 3) / len(hashes)
+    nbytes = ops = 0
+    by_bytes = by_ops = bound = 0.0
+    for k, g, pair in hashes:
+        keys, elems = k[..., 0].numel(), int(np.prod(g.local, dtype=np.int64))
+        b = keys * (16 + elems * (16 if pair else 8))
+        o = keys * elems * THREEFRY_OPS
+        nbytes, ops = nbytes + b, ops + o
+        by_bytes, by_ops = by_bytes + b / HBM_BYTES_PER_S * 1e3, by_ops + o / INT32_OPS_PER_S * 1e3
+        bound += max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S) * 1e3
+    row = dict(kernel="threefry", shape=label, launches_per_step=launches_per_step,
+               max_abs_err=0.0, device_ms=dev, ms=host, plain_ms=plain_ms, bytes=nbytes,
+               ops=ops, bound_ms=bound / len(hashes),
+               bound_by="bytes" if by_bytes >= by_ops else "operations")
+    row["bound_share"] = row["bound_ms"] / dev
+    per_step = "" if launches_per_step is None else f"{launches_per_step:g} launches per step; "
+    print(f"threefry at {label}: {len(hashes)} distinct hashes, kernel == plain == CPU, one "
+          f"launch each; {per_step}device {dev:.4f} ms per launch (profiler mean), wrapper "
+          f"{host:.4f} ms per hash, plain {plain_ms:.4f} ms per hash; bound "
+          f"{row['bound_ms']:.6f} ms a hash, mostly by {row['bound_by']} ({nbytes} B, {ops} "
+          f"ops), share of bound {row['bound_share']:.4f}")
+    return row
+
+
+THREEFRY_PATHS = ("auto camera_u32", "random_room camera_rgb", "maze camera_u32",
+                  "dynamic_room fused", "locked_room fused", "multi_goal pallas",
+                  "multi_player camera_u32")
+THREEFRY_STEPS = 4
+
+
+def threefry_rows(device) -> list:
+    """hash_row() of each main path's own draws: the hashes of a reset and
+    THREEFRY_STEPS steps (actions drawn before) of each family's main path
+    in THREEFRY_PATHS at its batch, with the launches per step read over
+    the steps (SingleRoom's must be the reset's 8); of a train step of each
+    PPO row after its init, with the launches per env step read over the
+    train step; and of rank 1's sharded draws in phase 8's dp = 2 mesh of
+    MESH_ENVS envs, its rows [MESH_ENVS / 2, MESH_ENVS) (``shard_range``):
+    ``Env.reset``'s split, the throughput program's actions (axis 1) and
+    the policy's categorical."""
+    import dataclasses
+
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch import rng
+
+    rows = []
+    for label, game, cfg, num_envs, backend, _, _, kw in main_paths():
+        if label not in THREEFRY_PATHS:
+            continue
+        env = rt.Env(game(dataclasses.replace(cfg, raycast_backend=backend)),
+                     num_envs=num_envs, device=device, reset_budget=kw.get("reset_budget", 0))
+        actions = rng.randint(rng.PRNGKey(SEED + 1, device),
+                              (THREEFRY_STEPS, num_envs) + env.game.action_shape, 0,
+                              env.game.num_actions)
+        with recorded_hashes() as seen:
+            state, _ = env.reset(rng.PRNGKey(SEED, device))
+            before = threefry_total()
+            for a in actions:
+                state = env.step(state, a).state
+            torch.cuda.synchronize()
+            per_step = (threefry_total() - before) / THREEFRY_STEPS
+        if game is rt.SingleRoom:
+            check(per_step == 8, f"threefry at {label}: {per_step} launches per step, not 8")
+        rows.append(hash_row(f"{label}: {game.__name__} B={num_envs}, reset + "
+                             f"{THREEFRY_STEPS} steps", list(seen.values()), per_step))
+        del env, state, actions, seen
+    for row in PPO_ROWS:
+        trainer = ppo_trainer(row, device)
+        with recorded_hashes() as seen:
+            ts = trainer.init(rng.PRNGKey(SEED))
+            before = threefry_total()
+            ts, metrics = trainer.train_step(ts)
+            float(metrics["loss"])
+            per_step = (threefry_total() - before) / trainer.cfg.rollout_steps
+        rows.append(hash_row(f"{row}: B={trainer.env.num_envs}, init + a train step",
+                             list(seen.values()), per_step))
+        del trainer, ts, seen
+    start, stop = MESH_ENVS // 2, MESH_ENVS
+    logits = torch.zeros(stop - start, 4, device=device)
+    with recorded_hashes() as seen:
+        rng.split(rng.PRNGKey(SEED, device), MESH_ENVS, (start, stop))
+        rng.randint(rng.PRNGKey(SEED + 1, device), (MESH_ENV_STEPS, MESH_ENVS), 0, 4,
+                    (start, stop), axis=1)
+        rng.categorical(rng.PRNGKey(SEED + 2, device), logits, (start, stop))
+    rows.append(hash_row(f"mesh dp=2 rank 1: rows [{start}, {stop}) of {MESH_ENVS}",
+                         list(seen.values()), None))
+    return rows
+
+
+def threefry_record(rows) -> dict:
+    """The threefry kernel's entry of the kernels' JSON: its launches in the
+    runs whose other launches main() sums (MAIN_THREEFRY), and its rows
+    (the first, SingleRoom's 4096-env main path, as the headline)."""
+    first = rows[0]
+    return {
+        "name": "threefry", "route": "cuda", "source": THREEFRY[0], "replaces": THREEFRY[1],
+        "launches": MAIN_THREEFRY[0], "max_abs_err": 0.0, "library_ms": None,
+        **{k: first[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+                                 "bound_share")},
+        "shapes": [{k: r[k] for k in ("shape", "launches_per_step", "device_ms", "ms",
+                                      "plain_ms", "bound_ms", "bound_share")} for r in rows],
+    }
 
 
 def observed_inputs(name, game, num_envs, device):
@@ -910,7 +1142,7 @@ def main_path_phase(label, game, cfg, num_envs, device, kernel_backend, kernel, 
     before = launch_counts()
     k_state, k_sum, obs, k_s, budget = run_main_path(
         game, kcfg, num_envs, STEPS, device, reset_budget)
-    launches = launches_since(before)
+    launches = launches_since(before, main_run=True)
     if memory:
         print(f"main path {label}: peak device memory "
               f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
@@ -1169,7 +1401,7 @@ def ppo_row_phase(row, device) -> dict:
         ts, metrics = trainer.train_step(ts)
     metrics = {k: float(v) for k, v in metrics.items()}
     seconds = time.perf_counter() - t0
-    launches = launches_since(before)
+    launches = launches_since(before, main_run=True)
     per_update = observations_per_update(trainer)
     updates = 1 + PPO_TIMED_UPDATES
     want = {name: (1 + updates * per_update if name == "crossing_cast" else 0)
@@ -1427,7 +1659,7 @@ def mesh_env_task(task, device, mesh=None) -> dict:
     state, acc = rollout.steps_per_second_program(env, steps)(state, rt.rng.PRNGKey(SEED + 1))
     checksum = float(acc)
     torch.cuda.synchronize()
-    launches = launches_since(before)
+    launches = launches_since(before, main_run=True)
     want = {name: (steps + 1 if name == "crossing_cast" else 0) for name in KERNELS}
     check(launches == want, f"mesh {task}: kernel launches {launches}, expected {want}")
     resets = getattr(env, "resets", None)
@@ -1549,7 +1781,7 @@ def mesh_train_task(task, device, num_envs=None, mesh=None, nudge=False) -> dict
     if mesh is not None:
         out["collectives"] = mesh.collectives - c0
         out["collective_ms"] = mesh.collective_ms - ms0
-    launches = launches_since(before)
+    launches = launches_since(before, main_run=True)
     per_update = observations_per_update(trainer)
     want = {name: (1 + 2 * per_update if name == "crossing_cast" else 0) for name in KERNELS}
     check(launches == want, f"mesh {task}: kernel launches {launches} for 1 + 2 x "
@@ -1564,7 +1796,8 @@ def mesh_train_task(task, device, num_envs=None, mesh=None, nudge=False) -> dict
 def mesh_rank(dp, mp, tasks) -> dict:
     """One rank of phase 8 (started by ``mesh.launch`` under gloo, every
     rank on ``cuda:0``): the (dp, mp) mesh, then each task.  Returns each
-    task's result (numpy)."""
+    task's result (numpy) and, under ``"threefry"``, the threefry kernel's
+    launches in the tasks' runs."""
     import torch
 
     from raycastworlds_tpu_torch import cuda_build
@@ -1576,12 +1809,14 @@ def mesh_rank(dp, mp, tasks) -> dict:
     world = torch.distributed.get_world_size()
     mesh = mesh_lib.make_mesh(dp=dp, mp=mp, devices=["cuda:0"] * world)
     out = {"mp_index": mesh.mp_index}
+    threefry = MAIN_THREEFRY[0]
     for task in tasks:
         if task in ("env", "budget"):
             out[task] = mesh_env_task(task, None, mesh)
         else:
             out[task] = mesh_train_task(task.split("_")[0], None, MESH_ENVS, mesh,
                                         nudge=task.endswith("_nudged"))
+    out["threefry"] = MAIN_THREEFRY[0] - threefry
     return out
 
 
@@ -1617,7 +1852,8 @@ def mesh_phase(device) -> int:
     rollout whose gathered params are within 1e-4 of the dp = 2 run's.
     Every rank launches ``crossing_cast`` once per observation and no other
     kernel.  Prints each topology's ms per train step and the collectives'
-    host ms per update; returns the crossing-cast launches of every run."""
+    host ms per update; returns the crossing-cast launches of every run
+    (each rank's threefry launches go to MAIN_THREEFRY)."""
     import shutil
     import tempfile
 
@@ -1728,7 +1964,9 @@ def mesh_phase(device) -> int:
     print(f"mesh launches: two ranks {two_s:.1f} s, four ranks {four_s:.1f} s, process "
           f"start included (every rank shares the one card: no scaling figure)")
     for ranks in (two, four):
-        launches += sum(x[t]["launches"] for x in ranks for t in x if t != "mp_index")
+        launches += sum(x[t]["launches"] for x in ranks for t in x
+                        if t not in ("mp_index", "threefry"))
+        MAIN_THREEFRY[0] += sum(x["threefry"] for x in ranks)
     shutil.rmtree(store_dir)
     return launches
 
@@ -1758,14 +1996,14 @@ def flagship_cfg(**kw):
 
 
 def counted(fn):
-    """Every count read just before ``fn()`` and just after it:
-    (its result, launches by kernel)."""
+    """Every count read just before ``fn()`` and just after it, a main-path
+    run: (its result, launches by kernel; threefry's go to MAIN_THREEFRY)."""
     import torch
 
     before = launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, launches_since(before)
+    return out, launches_since(before, main_run=True)
 
 
 def expect_crossing(label, launches, want) -> int:
@@ -2121,9 +2359,11 @@ def profile_step_phase(device) -> int:
     from raycastworlds_tpu_torch.utils import profiling
 
     path = os.path.join(TRACE_DIR, "profile_step")
+    before = profiling.total("kernel_launches.threefry")
     out, launches = counted(lambda: profile_step.main([
         "--num-envs", str(ADAPTER_ENVS), "--steps", str(PROFILE_STEP_STEPS), "--top", "15",
         "--trace-dir", path, "--device", str(device)]))
+    threefry = profiling.total("kernel_launches.threefry") - before
     # the reset's observation, then the warm-up, timed and profiled runs
     n = expect_crossing("profile_step", launches, 1 + 3 * PROFILE_STEP_STEPS)
     _, calls, _ = profiling.aggregate_trace(path)
@@ -2132,12 +2372,14 @@ def profile_step_phase(device) -> int:
           f"profile_step: {seen} crossing_cast_kernel calls in {PROFILE_STEP_STEPS} steps")
     check(out["device"].startswith("cuda") and out["device_ms_per_step"] > 0,
           "profile_step: no device time")
-    # the labels reach the hash: threefry is most of the reset's device time
-    # (about 94% at this row, PERF.md); a hash call past the patched
-    # rng.threefry2x32
-    # would read far lower
+    # the reset's hashes went through the kernel: the env's reset (split, then
+    # reset_batch's 8 hashes), then for each of the 3 runs its actions'
+    # randint (3 hashes) and 8 a step in the dense reset
+    want = 1 + 8 + 3 * (3 + 8 * PROFILE_STEP_STEPS)
+    check(threefry == want, f"profile_step: {threefry} threefry launches, expected {want} "
+          f"(8 a step)")
     within = {k: v["ms_per_step"] for k, v in out["within"].items()}
-    check(0 < within["reset_batch"] and 0.5 * within["reset_batch"] < within["threefry"],
+    check(0 < within["threefry"] < within["reset_batch"],
           f"profile_step: threefry {within['threefry']} of reset_batch "
           f"{within['reset_batch']} ms per step")
     print(f"profile_step: crossing_cast_kernel {seen} calls in {PROFILE_STEP_STEPS} steps; "
@@ -2145,7 +2387,8 @@ def profile_step_phase(device) -> int:
           f"{out['device_ms_per_step']:.3f} ms/step, busy {out['busy']:.1%}, "
           f"{out['kernels_per_step']:.1f} kernels/step; reset_batch "
           f"{out['within']['reset_batch']['pct']:.1f}%, threefry "
-          f"{out['within']['threefry']['pct']:.1f}% of device time")
+          f"{out['within']['threefry']['pct']:.1f}% of device time; threefry {threefry} "
+          f"launches")
     return n
 
 
@@ -2777,7 +3020,7 @@ def main() -> None:
     paths = main_paths()
     if times_only:
         ref = reference_rows(device)
-        rows = (shape_rows(device, paths) + trainer_shape_rows(device)
+        rows = (threefry_rows(device) + shape_rows(device, paths) + trainer_shape_rows(device)
                 + adapter_shape_rows(device) + shape_rows(device, single_paths()))
         finish(smi, {"times": list(ref.values()) + rows})
         return
@@ -2786,6 +3029,7 @@ def main() -> None:
     # its times and bound at the reference-default shape
     errs = kernel_phase(device)
     ref = reference_rows(device)
+    threefry = threefry_rows(device)
     words, pos, dirs = fuzz_inputs(8, 16, 4096, 512, SEED, device)
     plain_crossing = time_ms(lambda: raycast.cast_rays_crossing(words, (8, 16), pos, dirs), 3)
     print(f"plain crossing cast at B=4096 R=512 8x16: {plain_crossing:.4f} ms")
@@ -2883,7 +3127,7 @@ def main() -> None:
                        for r in rows if r["kernel"] == name],
         }
         for name, (source, replaces) in KERNELS.items()
-    ]})
+    ] + [threefry_record(threefry)]})
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ imports ``torch`` and numpy only.
 * ``GymAdapter``, ``GymVectorAdapter`` -- gymnasium-style single-env and
   vector-env facades (numpy out)
 * ``FrameStack``, ``ObsTransform`` -- composable env wrappers
-* ``rng``       -- threefry-2x32, bit-exact with ``jax.random``
+* ``rng``       -- threefry-2x32, bit-exact with ``jax.random`` (a CUDA kernel on the card)
 * ``ops``       -- raycasts (plain and CUDA kernels), collision, render,
   top view
 * ``utils``     -- checkpoints, debug checks, profiling, episode video,

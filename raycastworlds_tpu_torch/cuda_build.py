@@ -117,12 +117,14 @@ def load() -> ctypes.CDLL:
     points' argument types (every pointer and the stream as c_void_p)."""
     lib = ctypes.CDLL(build())
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    cll, cu = ctypes.c_longlong, ctypes.c_uint
     entries = {
         "rcw_max_smem_words": [],
         "rcw_crossing_cast": [vp] * 6 + [ci] * 5 + [vp],
         "rcw_dda_cast": [vp] * 6 + [ci] * 6 + [vp],
         "rcw_dda_render_u32": [vp] * 7 + [ci] * 7 + [cf, cf, vp],
         "rcw_crossing_render_pal8": [vp] * 6 + [ci] * 6 + [cf, cf, vp],
+        "rcw_threefry": [vp, cll, cll, vp] + [cu] * 6 + [ci, vp],
     }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
@@ -168,7 +170,7 @@ def launch(entry, device, *args, what: str) -> None:
     one place every kernel is launched: inside the span
     ``rcw.kernel.<kernel>``, counted as ``kernel_launches.<kernel>``, where
     ``<kernel>`` is the entry's name without ``rcw_`` (``crossing_cast``,
-    ``crossing_render_pal8``, ``dda_cast``, ``dda_render_u32``)."""
+    ``crossing_render_pal8``, ``dda_cast``, ``dda_render_u32``, ``threefry``)."""
     kernel = entry.__name__.removeprefix("rcw_")
     with profiling.span(f"rcw.kernel.{kernel}"), torch.cuda.device(device):
         err = entry(*args, torch.cuda.current_stream(device).cuda_stream)

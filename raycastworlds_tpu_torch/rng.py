@@ -13,7 +13,14 @@ A key is two uint32 words held as int64 values in ``[0, 2**32)`` (torch has
 no usable uint32 arithmetic), shape ``[..., 2]``.  Every function accepts a
 batch of keys: the leading dimensions of ``key`` stay leading dimensions of
 the result, and each key draws exactly what ``jax.random`` would draw for it
-alone.  Everything here is ordinary tensor arithmetic and runs on any device.
+alone.
+
+The hash dispatches on the key's device.  A CUDA key goes to the CUDA
+kernel ``csrc/threefry.cu`` (one launch a hash, counted as
+``kernel_launches.threefry``); any other key takes the plain version,
+:func:`threefry2x32` in int64 tensor ops, which the tests hold the kernel
+to bit for bit.  Everything after the hash is ordinary tensor arithmetic on
+the key's device.
 
 Each draw takes ``shard=(start, stop)`` (and ``axis``, 0 by default): it
 then returns only the elements of the global ``shape`` whose index along
@@ -25,11 +32,12 @@ its own rows, and its work does not grow with the number of ranks.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from . import cuda_build
 from .utils import profiling
 
 _MASK = 0xFFFFFFFF
@@ -69,19 +77,51 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 Shard = Optional[Tuple[int, int]]
 
 
+def _numel(shape: Sequence[int]) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+class _Geometry(NamedTuple):
+    """The counters of a draw's local elements, as the kernel computes them:
+    local element ``j`` (row-major in ``local``) has the counter
+    ``(o * global_len + start + a) * inner + r``, where ``r = j % inner``,
+    ``a = j // inner % local_len`` and ``o = j // inner // local_len``."""
+
+    local: Tuple[int, ...]
+    inner: int
+    start: int
+    local_len: int
+    global_len: int
+
+
+def _geometry(shape: Tuple[int, ...], shard: Shard = None, axis: int = 0) -> _Geometry:
+    """The counter geometry of a draw of ``shape`` (or its ``shard`` on
+    ``axis``), from the shape alone.  Raises where the draw's global size
+    reaches 2**32: the high counter word is 0 only below that."""
+    n = _numel(shape)
+    if n >= 2**32:
+        raise ValueError(f"a draw of {shape} has 2**32 elements or more")
+    if shard is None:
+        return _Geometry(shape, 1, 0, n, n)
+    start, stop = shard
+    if not 0 <= start <= stop <= shape[axis]:
+        raise ValueError(f"shard {shard} outside axis {axis} of {shape}")
+    local = shape[:axis] + (stop - start,) + shape[axis + 1:]
+    return _Geometry(local, _numel(shape[axis + 1:]), start, stop - start, shape[axis])
+
+
 def _counts(shape: Tuple[int, ...], device, shard: Shard = None, axis: int = 0) -> torch.Tensor:
     """Row-major iota over ``shape``: the counter words of one draw (the
     high counter word is 0 for every size this engine draws).  With
     ``shard=(start, stop)``, only the elements whose index along ``axis``
-    lies in ``[start, stop)``: that slice of the iota."""
+    lies in ``[start, stop)``: that slice of the iota (a shard that
+    ``_geometry`` accepts)."""
     if shard is None:
-        n = 1
-        for s in shape:
-            n *= s
-        return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+        return torch.arange(_numel(shape), dtype=torch.int64, device=device).reshape(shape)
     start, stop = shard
-    if not 0 <= start <= stop <= shape[axis]:
-        raise ValueError(f"shard {shard} outside axis {axis} of {shape}")
     local = list(shape)
     local[axis] = stop - start
     counts = torch.zeros(local, dtype=torch.int64, device=device)
@@ -95,23 +135,62 @@ def _counts(shape: Tuple[int, ...], device, shard: Shard = None, axis: int = 0) 
     return counts
 
 
-def _hash(key: torch.Tensor, shape: Tuple[int, ...], shard: Shard = None, axis: int = 0):
-    """Both output words of threefry over the iota of ``shape`` (or its
-    ``shard``), per key: each result is ``[*key.shape[:-1], *local shape]``."""
+def _uses_kernel(key: torch.Tensor) -> bool:
+    """The hash's dispatch: a CUDA key goes to the kernel (or raises), any
+    other takes the plain version."""
+    return key.device.type == "cuda"
+
+
+@profiling.span("rcw.rng.threefry")
+def _hash_kernel(key: torch.Tensor, g: _Geometry, pair: bool) -> torch.Tensor:
+    """The CUDA kernel's hash of ``key`` (any leading shape) over geometry
+    ``g``: both output words on a last axis of 2 (``pair``), or their xor.
+    One launch, no other device work: the keys are read through their
+    strides, the output is allocated empty.  Raises where the keys times
+    the local elements reach 2**32 - 256, where the kernel's uint32 thread
+    index would wrap."""
+    if key.dtype != torch.int64 or key.shape[-1:] != (2,):
+        raise ValueError(f"keys must be int64 [..., 2], not {key.dtype} {list(key.shape)}")
+    lead = key.shape[:-1]
+    total = _numel(lead) * _numel(g.local)
+    if total >= 2**32 - 256:
+        raise ValueError(f"{_numel(lead)} keys x {g.local} draws {total} elements, "
+                         f"2**32 - 256 or more in one launch")
+    out = torch.empty(lead + g.local + ((2,) if pair else ()), dtype=torch.int64,
+                      device=key.device)
+    if total == 0:
+        return out
+    keys = key.reshape(-1, 2)  # a view wherever the leading axes allow one
+    lib = cuda_build.load()
+    cuda_build.launch(lib.rcw_threefry, key.device, keys.data_ptr(), keys.stride(0),
+                      keys.stride(1), out.data_ptr(), total, _numel(g.local), g.inner,
+                      g.local_len, g.global_len, g.start, int(pair), what="threefry")
+    return out
+
+
+def _hash(key: torch.Tensor, shape: Tuple[int, ...], shard: Shard = None, axis: int = 0,
+          pair: bool = False) -> torch.Tensor:
+    """Threefry over the iota of ``shape`` (or its ``shard``), per key: both
+    output words on a last axis of 2 (``pair``) or their xor, shape
+    ``[*key.shape[:-1], *local shape(, 2)]``.  A CUDA key launches the
+    kernel; any other takes :func:`threefry2x32`."""
+    g = _geometry(shape, shard, axis)
+    if _uses_kernel(key):
+        return _hash_kernel(key, g, pair)
     lead = key.shape[:-1]
     counts = _counts(shape, key.device, shard, axis)
     expand = (...,) + (None,) * counts.dim()
     k0 = key[..., 0][expand]
     k1 = key[..., 1][expand]
     counts = counts.reshape((1,) * len(lead) + tuple(counts.shape))
-    return threefry2x32(k0, k1, torch.zeros_like(counts), counts)
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(counts), counts)
+    return torch.stack([b0, b1], dim=-1) if pair else b0 ^ b1
 
 
 def split(key: torch.Tensor, num: int = 2, shard: Shard = None) -> torch.Tensor:
     """``jax.random.split``: ``[..., 2]`` keys -> ``[..., num, 2]``; with
     ``shard=(start, stop)`` only those of the ``num`` keys."""
-    b0, b1 = _hash(key, (num,), shard)
-    return torch.stack([b0, b1], dim=-1)
+    return _hash(key, (num,), shard, pair=True)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
@@ -120,6 +199,8 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     data = int(data)
     if not 0 <= data < 2**32:
         raise ValueError("fold_in data must fit in uint32")
+    if _uses_kernel(key):  # one element, its counter data
+        return _hash_kernel(key, _Geometry((), 1, data, 1, 1), pair=True)
     zero = torch.zeros((), dtype=torch.int64, device=key.device)
     b0, b1 = threefry2x32(key[..., 0], key[..., 1], zero, zero + data)
     return torch.stack([b0, b1], dim=-1)
@@ -129,8 +210,7 @@ def random_bits(key: torch.Tensor, shape: Sequence[int], shard: Shard = None,
                 axis: int = 0) -> torch.Tensor:
     """32 random bits per element (int64 in ``[0, 2**32)``), shape
     ``[*key.shape[:-1], *shape]`` (``shard``: see the module docstring)."""
-    b0, b1 = _hash(key, tuple(shape), shard, axis)
-    return b0 ^ b1
+    return _hash(key, tuple(shape), shard, axis)
 
 
 def uniform(
