@@ -224,6 +224,7 @@ class Env:
             self.mesh.all_reduce(counts)
             left = k - counts[:self.mesh.dp_index].sum()
         sel = needs & (slot < left)
+        profiling.count_device("budget_resets", sel)
         slots = torch.arange(k, dtype=torch.int32, device=cnt.device)
         idx = torch.searchsorted(cnt, slots, right=True)
         idx = torch.where(idx < needs.shape[0], idx, 0)

@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
+
 
 def dilate4(mask: torch.Tensor) -> torch.Tensor:
     """4-neighbour binary dilation of bool[B, H, W] (outside is False)."""
@@ -22,14 +24,17 @@ def dilate4(mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@profiling.span("rcw.ops.flood_fill")
 def flood_fill(
     passable: torch.Tensor, seed_tu: torch.Tensor, num_iters: Optional[int] = None
 ) -> torch.Tensor:
     """Tiles of ``passable`` (bool[B, H, W]) reachable from ``seed_tu``
-    (i32[B, 2]) under 4-connectivity, after ``num_iters`` dilations."""
+    (i32[B, 2]) under 4-connectivity, after ``num_iters`` dilations
+    (counted as ``flood_dilations``)."""
     _, h, w = passable.shape
     if num_iters is None:
         num_iters = h * w // 2 + 2
+    profiling.count("flood_dilations", num_iters)
     ii = torch.arange(h, device=passable.device)[None, :, None]
     jj = torch.arange(w, device=passable.device)[None, None, :]
     seed = (ii == seed_tu[:, 0, None, None]) & (jj == seed_tu[:, 1, None, None])

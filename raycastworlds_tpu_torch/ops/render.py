@@ -251,6 +251,7 @@ def render_camera_u32(
     return composite(pad, wall, hpu, i32(colors.CEILING), i32(colors.FLOOR))
 
 
+@profiling.span("rcw.ops.u32_to_rgb")
 def u32_to_rgb(img: torch.Tensor) -> torch.Tensor:
     """0x00RRGGBB (int32 or uint32 view) -> uint8[..., 3]."""
     img = as_i32(img)

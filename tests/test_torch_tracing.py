@@ -5,7 +5,8 @@ On the CPU at 16 rays x 16 px: off, a step records nothing and enters no
 ``record_function``; on, the spans nest with the right parents and step
 ids, lie inside their ``record_function`` events of a ``profiling.trace``
 on the trace's clock, and the counters (``reset_rows``, ``episodes_ended``,
-``host_copy_bytes``, ``kernel_launches.<kernel>``) count what the step did;
+``host_copy_bytes``, ``kernel_launches.<kernel>``, RandomRoom's
+``flood_dilations`` and ``budget_resets``) count what the step did;
 states, observations, rewards and dones are the same bit for bit with the
 tracer on and off.  Imports no JAX (the ``cuda`` test runs on the card).
 """
@@ -315,3 +316,83 @@ def test_cuda_kernel_span_inside_the_cast():
     spans = profiling.spans()
     (k,) = _named(spans, "rcw.kernel.crossing_cast")
     assert spans[spans[k].parent].name == "rcw.game.cast_batch"
+
+
+def _random_room_env(num_envs=8, reset_budget=3, **cfg):
+    cfg = dict(num_rays=16, height_camera_view_pu=8, obs_type="camera_rgb",
+               max_episode_steps=3, **cfg)
+    return rt.Env(rt.RandomRoom(rt.RandomRoomConfig(**cfg)), num_envs=num_envs, device="cpu",
+                  reset_budget=reset_budget)
+
+
+def _ancestors(spans, i):
+    names = []
+    while spans[i].parent >= 0:
+        i = spans[i].parent
+        names.append(spans[i].name)
+    return names
+
+
+def test_random_room_fill_and_rgb_spans_under_the_step():
+    env = _random_room_env()
+    state, _ = env.reset(rt.rng.PRNGKey(3))
+    profiling.enable()
+    for t in range(4):
+        state = env.step(state, _actions(env, t)).state
+    profiling.disable()
+    spans = profiling.spans()
+    fills, rgbs = _named(spans, "rcw.ops.flood_fill"), _named(spans, "rcw.ops.u32_to_rgb")
+    assert len(fills) == 4 and len(rgbs) == 4  # one reset and one frame a step
+    for i in fills:
+        assert _ancestors(spans, i)[:2] == ["rcw.env.reset", "rcw.env.step"]
+    for i in rgbs:
+        assert _ancestors(spans, i) == ["rcw.ops.render_observation", "rcw.game.observe_batch",
+                                        "rcw.env.step"]
+
+
+@pytest.mark.parametrize("flood_iters,per_fill", [(-1, 16 * 16 // 2 + 2), (5, 5)])
+def test_flood_dilations_per_fill(flood_iters, per_fill):
+    env = _random_room_env(height_tile_map_tu=16, width_tile_map_tu=16, flood_iters=flood_iters)
+    state, _ = env.reset(rt.rng.PRNGKey(4))
+    before = profiling.total("flood_dilations")
+    profiling.enable()
+    for t in range(3):
+        state = env.step(state, _actions(env, t)).state
+    profiling.disable()
+    fills = _named(profiling.spans(), "rcw.ops.flood_fill")
+    assert len(fills) == 3
+    assert _summed("flood_dilations", within="rcw.ops.flood_fill") == 3 * per_fill
+    assert profiling.total("flood_dilations") - before == 3 * per_fill
+
+
+def test_budget_resets_counts_the_envs_reset():
+    """8 envs truncate together at their third step under a budget of 3:
+    the budget then resets 3 a step while the others wait."""
+    env = _random_room_env()
+    state, _ = env.reset(rt.rng.PRNGKey(5))
+    profiling.enable()
+    reset_now = []
+    for t in range(7):
+        res = env.step(state, _actions(env, t))
+        needy = state.pending_reset | res.done
+        reset_now.append(int((needy & ~res.state.pending_reset).sum()))
+        state = res.state
+    profiling.disable()
+    assert sum(reset_now) > 3 and max(reset_now) == 3
+    assert _summed("budget_resets", within="rcw.env.reset") == sum(reset_now)
+    assert _summed("reset_rows", within="rcw.env.reset") == 7 * 3
+
+
+def test_random_room_same_results_with_tracing_on_and_off():
+    env = _random_room_env()
+    off = _run(env, 6)
+    profiling.enable()
+    on = _run(env, 6)
+    profiling.disable()
+    assert _named(profiling.spans(), "rcw.ops.flood_fill")
+    for a, b in zip(off, on):
+        for x, y in zip((a.obs, a.reward, a.done), (b.obs, b.reward, b.done)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        x, y = a.state.to_numpy(), b.state.to_numpy()
+        for k in x:
+            assert np.array_equal(x[k], y[k]), k
