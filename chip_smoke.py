@@ -7,6 +7,7 @@
     python3 chip_smoke.py --adapters-only  # phases 1, 2 and 9
     python3 chip_smoke.py --single-only    # phases 1, 2 and 10
     python3 chip_smoke.py --bench-only     # phases 1, 2 and 11
+    python3 chip_smoke.py --flood-only     # phases 1, 2 and the flood fill rows
 
 Builds the CUDA kernels from ``raycastworlds_tpu_torch/csrc`` and drives the
 port's main paths, ``Env(Family(Config(raycast_backend=B)))`` with dense or
@@ -33,7 +34,14 @@ budgeted auto-reset, on the card.  Phases, each printing a line:
    to the plain path (``rng.threefry2x32``) on the card and on the CPU,
    one launch a hash, each path's launches per step read over its steps,
    and its hashes' times and bound (int32 operations over 64 x 132 x
-   1.98e9 a second, or bytes);
+   1.98e9 a second, or bytes); then the flood fill kernel at RandomRoom's
+   own fills, recorded as the camera_rgb main path makes them (8192 envs,
+   budget 256: the first reset's [8192, 16, 16] and the budgeted resets'
+   [256, 16, 16]), one launch a reset, each fill equal to the plain path
+   (``flood.flood_fill_plain``) on the card and on the CPU, with the
+   dilations its envs need to reach their fixed point, and its times and
+   bound (bytes: the bool map read, the seeds read, the bool result
+   written);
 4. the golden frames of tests/data/golden_frames.npz ("single_room", its
    checker, brick and xor textured twins, "multi_player" and "top_view",
    pinned from the JAX package) reproduced through the crossing kernel;
@@ -199,10 +207,13 @@ JSON record, which is the line before the last: each kernel's
 launches summed over the main paths (and the PPO rows, phase 8's runs on
 every rank and phase 9's, 10's and 11's runs) that route through it, its numbers at
 the reference-default shape and, under ``shapes``, at every main-path
-shape with its launches per step, and last the threefry kernel's (its
+shape with its launches per step, then the threefry kernel's (its
 launches summed over the same runs, its numbers at SingleRoom's 4096-env
-main path and, under ``shapes``, at every path of phase 3's rows); the last
-line is ``{"ok": true, "device": {...}}``.  Any failure raises: there is
+main path and, under ``shapes``, at every path of phase 3's rows), and
+last the flood fill kernel's (its launches summed over the same runs, its
+numbers at the budgeted reset's [256, 16, 16] and, under ``shapes``, at
+each of phase 3's flood rows); the last line is ``{"ok": true, "device":
+{...}}``.  Any failure raises: there is
 no fallback, and a machine without a CUDA device, or a directory without
 the package, exits non-zero before printing a result.
 """
@@ -254,6 +265,12 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # the threefry kernel's launches in the runs whose other kernels' launches
 # main() sums (phases 5 and 7-11): read just before and just after each
 MAIN_THREEFRY = [0]
+# The reachability fill's kernel, which replaces no Pallas kernel (the JAX
+# package's fill is a fori_loop of dilations that XLA fuses); its launches
+# in the same runs as MAIN_THREEFRY
+FLOOD = ("raycastworlds_tpu_torch/csrc/flood_fill.cu",
+         "none: the JAX package's flood_fill, a fori_loop of dilations that XLA fuses")
+MAIN_FLOOD = [0]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -264,21 +281,22 @@ def check(cond: bool, msg: str) -> None:
 def launch_counts() -> dict:
     """name -> the kernel's launches in this process so far (the tracer's
     ``kernel_launches.<name>``, counted by ``cuda_build.launch``), for
-    KERNELS and threefry."""
+    KERNELS, threefry and flood_fill."""
     from raycastworlds_tpu_torch.utils import profiling
 
     return {name: profiling.total(f"kernel_launches.{name}")
-            for name in (*KERNELS, "threefry")}
+            for name in (*KERNELS, "threefry", "flood_fill")}
 
 
 def launches_since(before: dict, main_run: bool = False) -> dict:
     """name -> each of KERNELS' launches since ``launch_counts()`` read
     ``before``.  ``main_run``: the window is a main-path run whose launches
-    main() sums, and threefry's launches in it are added to
-    MAIN_THREEFRY."""
+    main() sums, and threefry's and flood_fill's launches in it are added
+    to MAIN_THREEFRY and MAIN_FLOOD."""
     now = launch_counts()
     if main_run:
         MAIN_THREEFRY[0] += now["threefry"] - before["threefry"]
+        MAIN_FLOOD[0] += now["flood_fill"] - before["flood_fill"]
     return {name: now[name] - before[name] for name in KERNELS}
 
 
@@ -816,6 +834,139 @@ def threefry_record(rows) -> dict:
     return {
         "name": "threefry", "route": "cuda", "source": THREEFRY[0], "replaces": THREEFRY[1],
         "launches": MAIN_THREEFRY[0], "max_abs_err": 0.0, "library_ms": None,
+        **{k: first[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+                                 "bound_share")},
+        "shapes": [{k: r[k] for k in ("shape", "launches_per_step", "device_ms", "ms",
+                                      "plain_ms", "bound_ms", "bound_share")} for r in rows],
+    }
+
+
+class recorded_fills:
+    """Within ``with recorded_fills() as seen:`` the first fill the kernel
+    computes at each (map shape, dilations) is recorded in the dict
+    ``seen``: copies of its map and seeds, and its dilations."""
+
+    def __enter__(self):
+        from raycastworlds_tpu_torch.ops import flood
+
+        self.real, seen = flood._flood_fill_kernel, {}
+
+        def recording(passable, seed_tu, num_iters):
+            seen.setdefault((tuple(passable.shape), num_iters),
+                            (passable.clone(), seed_tu.clone(), num_iters))
+            return self.real(passable, seed_tu, num_iters)
+
+        flood._flood_fill_kernel = recording
+        return seen
+
+    def __exit__(self, *exc):
+        from raycastworlds_tpu_torch.ops import flood
+
+        flood._flood_fill_kernel = self.real
+
+
+def fixed_point_dilations(passable, seed_tu) -> int:
+    """The dilations after which every env's fill stops changing (the
+    plain loop's, read on the host after each)."""
+    import torch
+
+    from raycastworlds_tpu_torch.ops import flood
+
+    reach, k = flood.flood_fill_plain(passable, seed_tu, 0), 0
+    while True:
+        nxt = flood.dilate4(reach) & passable
+        if torch.equal(nxt, reach):
+            return k
+        reach, k = nxt, k + 1
+
+
+def fill_row(label, passable, seed_tu, num_iters, launches_per_step) -> dict:
+    """The flood fill kernel on one recorded fill: equal to the plain path
+    on the card and on the CPU, exact, in one launch; the kernel's median
+    device ms per launch (device_ms), the wrapper's host ms per call
+    (time_ms over 20 calls), the plain path's ms, and the bound: the bytes
+    of the bool map read, the int32 seeds read and the bool result written,
+    over HBM_BYTES_PER_S (the rounds' few integer operations a 32-tile word
+    are far below it)."""
+    import torch
+
+    from raycastworlds_tpu_torch.ops import flood
+    from raycastworlds_tpu_torch.utils import profiling
+
+    kernel = lambda: flood._flood_fill_kernel(passable, seed_tu, num_iters)  # noqa: E731
+    plain = lambda: flood.flood_fill_plain(passable, seed_tu, num_iters)  # noqa: E731
+    before = profiling.total("kernel_launches.flood_fill")
+    got = kernel()
+    torch.cuda.synchronize()
+    n = profiling.total("kernel_launches.flood_fill") - before
+    check(n == 1, f"flood fill at {label}: {n} launches for one fill")
+    check(torch.equal(got, plain()), f"flood fill at {label}: kernel != plain on the card")
+    check(torch.equal(got.cpu(), flood.flood_fill_plain(passable.cpu(), seed_tu.cpu(),
+                                                        num_iters)),
+          f"flood fill at {label}: card != CPU")
+    rounds = fixed_point_dilations(passable, seed_tu)
+    dev = device_ms("flood_fill", kernel)
+    host = time_ms(kernel, 20)
+    plain_ms = time_ms(plain, 3)
+    nbytes = 2 * passable.numel() + seed_tu.numel() * 4
+    row = dict(kernel="flood_fill", shape=label, launches_per_step=launches_per_step,
+               max_abs_err=0.0, device_ms=dev, ms=host, plain_ms=plain_ms, bytes=nbytes,
+               ops=0, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    row["bound_share"] = row["bound_ms"] / dev
+    per_step = "" if launches_per_step is None else f"{launches_per_step:g} launches per step; "
+    print(f"flood fill at {label}: kernel == plain == CPU in one launch, {num_iters} "
+          f"dilations, fixed point after {rounds}; {per_step}device {dev:.4f} ms per launch "
+          f"(profiler median of >= {PROFILED_LAUNCHES}), wrapper {host:.4f} ms per call, "
+          f"plain {plain_ms:.4f} ms; bound {row['bound_ms']:.6f} ms by bytes ({nbytes} B), "
+          f"share of bound {row['bound_share']:.4f}")
+    return row
+
+
+def flood_rows(device) -> list:
+    """fill_row() of RandomRoom's own fills: those of a reset and
+    THREEFRY_STEPS steps of the ``random_room camera_rgb`` main path (8192
+    envs, budget 256), one launch a reset; the budgeted reset's shape
+    first."""
+    import dataclasses
+
+    import torch
+
+    import raycastworlds_tpu_torch as rt
+    from raycastworlds_tpu_torch import rng
+    from raycastworlds_tpu_torch.utils import profiling
+
+    label, game, cfg, num_envs, backend, _, _, kw = next(
+        p for p in main_paths() if p[0] == "random_room camera_rgb")
+    env = rt.Env(game(dataclasses.replace(cfg, raycast_backend=backend)), num_envs=num_envs,
+                 device=device, reset_budget=kw["reset_budget"])
+    actions = rng.randint(rng.PRNGKey(SEED + 1, device), (THREEFRY_STEPS, num_envs), 0,
+                          env.game.num_actions)
+    with recorded_fills() as seen:
+        state, _ = env.reset(rng.PRNGKey(SEED, device))
+        before = profiling.total("kernel_launches.flood_fill")
+        for a in actions:
+            state = env.step(state, a).state
+        torch.cuda.synchronize()
+        per_step = (profiling.total("kernel_launches.flood_fill") - before) / THREEFRY_STEPS
+    check(per_step == 1, f"flood fill at {label}: {per_step} launches per step, not 1")
+    rows = []
+    for (shape, iters), (passable, seed_tu, _) in sorted(seen.items()):
+        first = shape[0] == num_envs
+        rows.append(fill_row(
+            f"{label}: RandomRoom {'first reset' if first else 'budgeted reset'} "
+            f"{list(shape)}", passable, seed_tu, iters, None if first else per_step))
+    del env, state, actions, seen
+    return rows
+
+
+def flood_record(rows) -> dict:
+    """The flood fill kernel's entry of the kernels' JSON: its launches in
+    the runs whose other launches main() sums (MAIN_FLOOD), and its rows
+    (the first, the budgeted reset's, as the headline)."""
+    first = rows[0]
+    return {
+        "name": "flood_fill", "route": "cuda", "source": FLOOD[0], "replaces": FLOOD[1],
+        "launches": MAIN_FLOOD[0], "max_abs_err": 0.0, "library_ms": None,
         **{k: first[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
                                  "bound_share")},
         "shapes": [{k: r[k] for k in ("shape", "launches_per_step", "device_ms", "ms",
@@ -2965,8 +3116,9 @@ def main() -> None:
     adapters_only = sys.argv[1:] == ["--adapters-only"]
     single_only = sys.argv[1:] == ["--single-only"]
     bench_only = sys.argv[1:] == ["--bench-only"]
+    flood_only = sys.argv[1:] == ["--flood-only"]
     check(times_only or mesh_only or adapters_only or single_only or bench_only
-          or not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
+          or flood_only or not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     sys.path.insert(0, ROOT)
     import raycastworlds_tpu_torch as rt
     from raycastworlds_tpu_torch import cuda_build
@@ -3017,10 +3169,15 @@ def main() -> None:
         finish(smi, {"bench_launches": bench_phase(device)})
         return
 
+    if flood_only:
+        finish(smi, {"kernels": [flood_record(flood_rows(device))]})
+        return
+
     paths = main_paths()
     if times_only:
         ref = reference_rows(device)
-        rows = (threefry_rows(device) + shape_rows(device, paths) + trainer_shape_rows(device)
+        rows = (threefry_rows(device) + flood_rows(device) + shape_rows(device, paths)
+                + trainer_shape_rows(device)
                 + adapter_shape_rows(device) + shape_rows(device, single_paths()))
         finish(smi, {"times": list(ref.values()) + rows})
         return
@@ -3030,6 +3187,7 @@ def main() -> None:
     errs = kernel_phase(device)
     ref = reference_rows(device)
     threefry = threefry_rows(device)
+    fills = flood_rows(device)
     words, pos, dirs = fuzz_inputs(8, 16, 4096, 512, SEED, device)
     plain_crossing = time_ms(lambda: raycast.cast_rays_crossing(words, (8, 16), pos, dirs), 3)
     print(f"plain crossing cast at B=4096 R=512 8x16: {plain_crossing:.4f} ms")
@@ -3127,7 +3285,7 @@ def main() -> None:
                        for r in rows if r["kernel"] == name],
         }
         for name, (source, replaces) in KERNELS.items()
-    ] + [threefry_record(threefry)]})
+    ] + [threefry_record(threefry), flood_record(fills)]})
 
 
 if __name__ == "__main__":

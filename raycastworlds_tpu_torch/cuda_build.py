@@ -125,6 +125,7 @@ def load() -> ctypes.CDLL:
         "rcw_dda_render_u32": [vp] * 7 + [ci] * 7 + [cf, cf, vp],
         "rcw_crossing_render_pal8": [vp] * 6 + [ci] * 6 + [cf, cf, vp],
         "rcw_threefry": [vp, cll, cll, vp] + [cu] * 6 + [ci, vp],
+        "rcw_flood_fill": [vp] * 3 + [ci] * 4 + [vp],
     }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
@@ -170,7 +171,8 @@ def launch(entry, device, *args, what: str) -> None:
     one place every kernel is launched: inside the span
     ``rcw.kernel.<kernel>``, counted as ``kernel_launches.<kernel>``, where
     ``<kernel>`` is the entry's name without ``rcw_`` (``crossing_cast``,
-    ``crossing_render_pal8``, ``dda_cast``, ``dda_render_u32``, ``threefry``)."""
+    ``crossing_render_pal8``, ``dda_cast``, ``dda_render_u32``, ``threefry``,
+    ``flood_fill``)."""
     kernel = entry.__name__.removeprefix("rcw_")
     with profiling.span(f"rcw.kernel.{kernel}"), torch.cuda.device(device):
         err = entry(*args, torch.cuda.current_stream(device).cuda_stream)
