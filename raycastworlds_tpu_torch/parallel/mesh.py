@@ -41,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from ..state import EnvState
+from ..utils import profiling
 
 DATA_AXIS = "dp"
 MODEL_AXIS = "mp"
@@ -79,9 +80,7 @@ class Mesh:
     its device and the groups of the ranks it reduces with (the ``dp``
     group: the ranks of its ``mp_index``; the ``mp`` group: the ranks of
     its ``dp_index``).  A group is None in a process without a process
-    group, where every collective is the identity.  ``collectives`` and
-    ``collective_ms`` count the all-reduces this rank made and their host
-    milliseconds (under NCCL the enqueue; under gloo the whole transfer)."""
+    group, where every collective is the identity."""
 
     dp: int
     mp: int
@@ -90,8 +89,6 @@ class Mesh:
     device: torch.device
     dp_group: Any = None
     mp_group: Any = None
-    collectives: int = 0
-    collective_ms: float = 0.0
 
     @property
     def shape(self) -> dict:
@@ -109,22 +106,24 @@ class Mesh:
         raise ValueError(f"unknown mesh axis {axis!r}")
 
     def all_reduce(self, t: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
-        """Sum ``t`` in place over ``axis``'s group; returns ``t``."""
+        """Sum ``t`` in place over ``axis``'s group; returns ``t``.  Each
+        all-reduce runs in the ``rcw.mesh.all_reduce`` span (under NCCL the
+        enqueue, under gloo the whole transfer) and counts
+        ``mesh_collectives``."""
         group = self._axis(axis)[0]
         if group is None:
             return t
-        t0 = time.perf_counter()
-        if t.is_cuda and dist.get_backend(group) == "gloo":
-            # staged on the caller's stream: the copy out waits for the
-            # kernels that wrote ``t`` and every later kernel reads the sum,
-            # with no side stream of gloo's between them
-            host = t.cpu()
-            dist.all_reduce(host, group=group)
-            t.copy_(host)
-        else:
-            dist.all_reduce(t, group=group)
-        self.collective_ms += (time.perf_counter() - t0) * 1e3
-        self.collectives += 1
+        with profiling.span("rcw.mesh.all_reduce"):
+            if t.is_cuda and dist.get_backend(group) == "gloo":
+                # staged on the caller's stream: the copy out waits for the
+                # kernels that wrote ``t`` and every later kernel reads the
+                # sum, with no side stream of gloo's between them
+                host = t.cpu()
+                dist.all_reduce(host, group=group)
+                t.copy_(host)
+            else:
+                dist.all_reduce(t, group=group)
+        profiling.count("mesh_collectives")
         return t
 
     def sum(self, t: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:

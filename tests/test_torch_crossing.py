@@ -27,32 +27,49 @@ from raycastworlds_tpu_torch.ops.bitmap import pack_bits_np
 from raycastworlds_tpu_torch.utils import profiling
 
 
-def fuzz_case(h, w, b, r, seed, diagonal=False):
+# the "tiny" kind's ray components: t overflows to +inf partway along that axis
+TINY = np.array([1e-30, 1e-37, 3e-38, 1e-39, 1e-44], np.float32)
+AXES = np.array([[1, 0], [-1, 0], [0, 1], [0, -1]], np.float32)
+_S = np.float32(np.sqrt(0.5))
+DIAGONALS = np.array([[_S, _S], [_S, -_S], [-_S, _S], [-_S, -_S]], np.float32)
+
+
+def fuzz_case(h, w, b, r, seed, diagonal=False, kind="random"):
     """(words u32[B, NW], pos f32[B, 2], dirs f32[B, R, 2]) on random maps,
     with a share of rays that have an exact-zero component (and, with
     ``diagonal``, exact 45-degree rays from integer positions, which sit on
-    grid corners)."""
+    grid corners).  Other ``kind``s: "no_border", the same on maps without
+    a border ring (rays leave the map and the clamped tile repeats);
+    "sliding", integer positions and only axis-parallel rays; "corners",
+    integer positions and only diagonal rays; "tiny", random rays with one
+    component of magnitude in TINY."""
     rng = np.random.RandomState(seed)
     maps = []
     for _ in range(b):
         m = rng.rand(h, w) < 0.25
-        m[0, :] = m[-1, :] = True
-        m[:, 0] = m[:, -1] = True
+        if kind != "no_border":
+            m[0, :] = m[-1, :] = True
+            m[:, 0] = m[:, -1] = True
         maps.append(pack_bits_np(m))
     words = np.stack(maps)
     pos = rng.uniform([1.1, 1.1], [h - 1.1, w - 1.1], size=(b, 2)).astype(np.float32)
     ang = rng.uniform(0, 2 * np.pi, size=(b, r))
     dirs = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    if kind in ("sliding", "corners"):
+        rays = AXES if kind == "sliding" else DIAGONALS
+        return words, np.floor(pos), rays[rng.randint(0, 4, size=(b, r))]
+    if kind == "tiny":
+        comp = rng.randint(0, 2, size=(b, r, 1))
+        tiny = TINY[rng.randint(0, len(TINY), size=(b, r, 1))] * rng.choice([-1, 1], (b, r, 1))
+        np.put_along_axis(dirs, comp, tiny.astype(np.float32), axis=-1)
+        return words, pos, dirs
     # gridline sliding: integer positions, axis-parallel rays
     nb = max(b // 4, 1)
     pos[:nb] = np.floor(pos[:nb])
-    axis = np.array([[1, 0], [-1, 0], [0, 1], [0, -1]], np.float32)
-    dirs[:nb, : min(r, 8)] = np.resize(axis, (min(r, 8), 2))
-    dirs[nb : 2 * nb, :4] = axis  # axis-parallel from non-integer positions
+    dirs[:nb, : min(r, 8)] = np.resize(AXES, (min(r, 8), 2))
+    dirs[nb : 2 * nb, :4] = AXES[:r]  # axis-parallel from non-integer positions
     if diagonal:
-        s = np.float32(np.sqrt(0.5))
-        diag = np.array([[s, s], [s, -s], [-s, s], [-s, -s]], np.float32)
-        dirs[:nb, 8:12] = diag
+        dirs[:nb, 8:12] = DIAGONALS[:max(r - 8, 0)]
     return words, pos, dirs
 
 
@@ -143,12 +160,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The card's cases: the four fuzz maps; sliding rays; 1 and 80 rays per env
+# and a 336x336 map at 2 rays (the kernel's block layouts: 4 envs' words
+# of the big map exceed shared memory, so a block takes 2); and the inputs
+# an early-exit walk has to survive at the main paths' maps.
+CUDA_CASES = [
+    (8, 16, 64, 512, "random"), (13, 9, 7, 100, "random"), (24, 40, 16, 129, "random"),
+    (48, 48, 8, 256, "random"), (8, 16, 64, 512, "sliding"), (24, 40, 16, 333, "sliding"),
+    (8, 16, 256, 1, "random"), (8, 16, 256, 80, "random"), (336, 336, 64, 2, "random"),
+] + [(h, w, 64, r, kind) for kind in ("no_border", "tiny", "corners")
+     for h, w, r in ((8, 16, 512), (16, 16, 256), (17, 17, 64), (24, 40, 333))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "h,w,b,r", [(8, 16, 64, 512), (13, 9, 7, 100), (24, 40, 16, 129), (48, 48, 8, 256)]
-)
-def test_cuda_kernel_matches_plain(cuda_device, h, w, b, r):
-    words, pos, dirs = fuzz_case(h, w, b, r, seed=4, diagonal=True)
+@pytest.mark.parametrize("h,w,b,r,kind", CUDA_CASES)
+def test_cuda_kernel_matches_plain(cuda_device, h, w, b, r, kind):
+    words, pos, dirs = fuzz_case(h, w, b, r, seed=4, diagonal=True, kind=kind)
     args = _torch(words, pos, dirs, cuda_device)
     before = profiling.total("kernel_launches.crossing_cast")
     got = rck.cast_rays_crossing_kernel(args[0], (h, w), *args[1:])

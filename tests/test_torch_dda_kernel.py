@@ -16,7 +16,7 @@ import torch
 
 from raycastworlds_tpu_torch.ops import raycast, raycast_pallas
 from raycastworlds_tpu_torch.utils import profiling
-from test_torch_crossing import SHAPES, _np, _torch, fuzz_case
+from test_torch_crossing import CUDA_CASES, SHAPES, _np, _torch, fuzz_case
 
 
 def no_zero_case(h, w, b, r, seed):
@@ -103,12 +103,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "h,w,b,r,steps",
-    [(8, 16, 64, 512, 24), (13, 9, 7, 100, 22), (24, 40, 16, 129, 64),
-     (48, 48, 8, 256, 96), (8, 16, 33, 65, 3)],
+    "h,w,b,r,kind,steps",
+    [(h, w, b, r, kind, h + w) for h, w, b, r, kind in CUDA_CASES]
+    + [(8, 16, 33, 65, "random", 3), (24, 40, 16, 333, "sliding", 3)],
 )
-def test_cuda_kernel_matches_plain(cuda_device, h, w, b, r, steps):
-    words, pos, dirs = fuzz_case(h, w, b, r, seed=24, diagonal=True)
+def test_cuda_kernel_matches_plain(cuda_device, h, w, b, r, kind, steps):
+    words, pos, dirs = fuzz_case(h, w, b, r, seed=24, diagonal=True, kind=kind)
     args = _torch(words, pos, dirs, cuda_device)
     before = profiling.total("kernel_launches.dda_cast")
     got = raycast_pallas.cast_rays_pallas_batched(args[0], (h, w), *args[1:], steps)

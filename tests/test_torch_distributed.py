@@ -13,7 +13,8 @@ only inside the fixtures and tests.
   budget reaches across a shard boundary and leaves envs frozen) and
   MultiPlayerRoom: the assembled states equal the one-process port's and
   the JAX ``Env``'s bit for bit; ``steps_per_second_program``'s checksum
-  within rtol 1e-4 of JAX's (summed across ranks in another order).
+  within rtol 1e-4 of JAX's (summed across ranks in another order); the
+  budgeted steps one ``mesh_collectives`` each.
 * Trainers from params carried from the JAX trainer on a mesh of the same
   shape (SingleRoom 16 x 16 gray, 8 envs, hidden 32, rollout 4, 2
   minibatches, episodes truncated after 3 steps): the feedforward trainer
@@ -45,7 +46,7 @@ from raycastworlds_tpu_torch import bench_scaling, dryrun, train
 from raycastworlds_tpu_torch.parallel import mesh as mesh_lib
 from raycastworlds_tpu_torch.parallel import ppo, ppo_rnn
 from raycastworlds_tpu_torch.parallel.rollout import rollout_random, steps_per_second_program
-from raycastworlds_tpu_torch.utils import checkpoint
+from raycastworlds_tpu_torch.utils import checkpoint, profiling
 
 SMALL = dict(num_rays=16, height_camera_view_pu=16, obs_type="camera_gray",
              max_episode_steps=3)
@@ -80,19 +81,23 @@ def flat(tree):
 def env_runs(mesh=None):
     """Each env case: reset(PRNGKey(0)) + T random steps (PRNGKey(1));
     SingleRoom also the throughput program's 8 steps (PRNGKey(2)).  Returns
-    the global final states' leaves and the checksum."""
+    the global final states' leaves, the checksum and the all-reduces of
+    the budgeted case's reset and steps."""
     out = {}
     for case in ENV_CASES:
         env = make_env(case, mesh, None if mesh else "cpu")
+        before = profiling.total("mesh_collectives")
         state, _ = env.reset(rt.rng.PRNGKey(0))
         state, _ = rollout_random(env, state, rt.rng.PRNGKey(1), T)
+        if env.reset_budget:
+            out["budget_collectives"] = profiling.total("mesh_collectives") - before
         out[case] = state if mesh is None else mesh_lib.gather_env_state(state, mesh)
         if case == "single_room":
             state, _ = env.reset(rt.rng.PRNGKey(0))
             state, acc = steps_per_second_program(env, 8)(state, rt.rng.PRNGKey(2))
             out["sps"] = state if mesh is None else mesh_lib.gather_env_state(state, mesh)
             out["checksum"] = float(acc)
-    return {k: v if isinstance(v, float) else v.to_numpy() for k, v in out.items()}
+    return {k: v if isinstance(v, (int, float)) else v.to_numpy() for k, v in out.items()}
 
 
 def tail(env, state):
@@ -360,6 +365,16 @@ def test_checksum_within_rtol(request, topology, one_process, jax_side):
     assert one_process["checksum"] == pytest.approx(want, rel=1e-4)
     for rank in request.getfixturevalue(topology)["ranks"]:
         assert rank["env"]["checksum"] == pytest.approx(want, rel=1e-4)
+
+
+@pytest.mark.parametrize("topology", ["two", "four"])
+def test_budgeted_step_all_reduces_once(request, topology, one_process):
+    """The budgeted reset's one collective a step (the needy counts of the
+    dp ranks), counted by the tracer's ``mesh_collectives``; none without
+    a process group."""
+    assert one_process["budget_collectives"] == 0
+    for rank in request.getfixturevalue(topology)["ranks"]:
+        assert rank["env"]["budget_collectives"] == T
 
 
 def test_budget_straddles_a_shard_boundary():

@@ -26,25 +26,31 @@ import raycastworlds_tpu_torch as rt
 from raycastworlds_tpu_torch.ops import render, render_fused
 from raycastworlds_tpu_torch.ops.bitmap import pack_bits_np
 from raycastworlds_tpu_torch.utils import profiling
+from test_torch_crossing import TINY
 
 MAX_ULP = 4
 
 
-def render_case(kw, b, seed, sliding=False):
+def render_case(kw, b, seed, kind="random"):
     """Numpy inputs of the fused render kernels for ``EnvConfig(**kw)``:
     random walls (density 0.25) inside a border, block tiles on 15% of the
     other tiles, a goal on an empty interior tile (obstacles = walls |
-    blocks | goal), random positions and headings, each heading's player direction and
-    mirror-ordered fan.  ``sliding``: integer positions, axis headings and
-    exact axis player directions, and the first 4 rays along the heading."""
+    blocks | goal), random positions and headings, each heading's player
+    direction and mirror-ordered fan.  Other ``kind``s: "no_border", the
+    walls without a border ring; "sliding", integer positions, axis
+    headings and exact axis player directions, and the first 4 rays along
+    the heading; "tiny", the same at random positions with the first 4
+    rays' cross component of magnitude in TINY; "corners", integer
+    positions and diagonal headings, the first 4 rays along the heading."""
     cfg = rt.EnvConfig(**kw)
     h, w = cfg.H, cfg.W
     rng = np.random.default_rng(seed)
 
     def maps(density):
         m = rng.random((b, h, w)) < density
-        m[:, 0, :] = m[:, -1, :] = True
-        m[:, :, 0] = m[:, :, -1] = True
+        if kind != "no_border":
+            m[:, 0, :] = m[:, -1, :] = True
+            m[:, :, 0] = m[:, :, -1] = True
         return m
 
     walls = maps(0.25)
@@ -54,13 +60,24 @@ def render_case(kw, b, seed, sliding=False):
     blocks[np.arange(b), goal[:, 0], goal[:, 1]] = False
     obst = walls | blocks
     obst[np.arange(b), goal[:, 0], goal[:, 1]] = True
-    if sliding:
-        pos = rng.integers(1, [h - 1, w - 1], size=(b, 2)).astype(np.float32)
+    if kind in ("sliding", "tiny", "corners"):
+        if kind == "tiny":
+            pos = rng.uniform([1.0, 1.0], [h - 1.0, w - 1.0], size=(b, 2))
+        else:
+            pos = rng.integers(1, [h - 1, w - 1], size=(b, 2))
+        pos = pos.astype(np.float32)
         q = rng.integers(0, 4, size=b)
         dir_au = (q * (cfg.num_directions // 4)).astype(np.int32)
         pdir = np.array([[1, 0], [0, 1], [-1, 0], [0, -1]], np.float32)[q]
+        if kind == "corners":
+            dir_au = dir_au + cfg.num_directions // 8
+            pdir = cfg.directions_wu[dir_au]
         dirs = cfg.ray_fan_lut_flipped[dir_au].copy()
         dirs[:, :4] = pdir[:, None, :]
+        if kind == "tiny":  # the component across the heading: 1 for q even
+            tiny = TINY[rng.integers(0, len(TINY), size=(b, 4))]
+            dirs[np.arange(b)[:, None], np.arange(4), (1 - q % 2)[:, None]] = (
+                tiny * rng.choice(np.array([-1, 1], np.float32), size=(b, 4)))
     else:
         pos = rng.uniform([1.0, 1.0], [h - 1.0, w - 1.0], size=(b, 2)).astype(np.float32)
         dir_au = rng.integers(0, cfg.num_directions, size=b).astype(np.int32)
@@ -278,16 +295,19 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("blocks", [False, True], ids=["no_blocks", "blocks"])
-@pytest.mark.parametrize("sliding", [False, True], ids=["random", "sliding"])
+@pytest.mark.parametrize("kind", ["random", "sliding"])
 @pytest.mark.parametrize(
     "kw",
     [dict(num_rays=512), dict(height_tile_map_tu=24, width_tile_map_tu=40,
                               num_rays=129, height_camera_view_pu=100),
-     dict(num_rays=65, height_camera_view_pu=48, max_dda_steps=3)],
-    ids=["default", "wide_map", "truncated"],
+     dict(num_rays=65, height_camera_view_pu=48, max_dda_steps=3),
+     dict(height_tile_map_tu=13, width_tile_map_tu=9, num_rays=513),
+     dict(height_tile_map_tu=48, width_tile_map_tu=48, num_rays=256,
+          height_camera_view_pu=100)],
+    ids=["default", "wide_map", "truncated", "odd_map", "big_map"],
 )
-def test_cuda_kernel_matches_plain(cuda_device, kw, sliding, blocks):
-    c = render_case(kw, 16, seed=35, sliding=sliding)
+def test_cuda_kernel_matches_plain(cuda_device, kw, kind, blocks):
+    c = render_case(kw, 16, seed=35, kind=kind)
     cfg = c["cfg"]
     d = lambda a: t(a).to(cuda_device)  # noqa: E731
     args = (d(c["obstacle"]), d(c["wall"]), (cfg.H, cfg.W), d(c["pos"]), d(c["pdir"]),

@@ -6,9 +6,9 @@ port rounds twice; no pixel of these frames moves for it.
 
 The frame follows tests/test_golden_images.py: for the first of the seeds
 (1234, 7, 42, 99) whose frame has at least 3 colours, reset, then actions
-2, 0, 3 (for every player), then observe.  chip_smoke.py repeats
-"single_room", the three textured keys, "multi_player" and "top_view" on
-the card.
+2, 0, 3 (for every player), then observe.
+tests/test_torch_card_paths.py repeats "single_room", the three textured
+keys, "multi_player" and "top_view" on the card.
 """
 
 import os

@@ -43,9 +43,9 @@ def _args(c, device="cpu"):
             c["denom"])
 
 
-def _single_goal_case(kw, b, seed, sliding=False):
+def _single_goal_case(kw, b, seed, kind="random"):
     """render_case without block tiles: the obstacles are walls | goal."""
-    c = render_case(kw, b, seed, sliding)
+    c = render_case(kw, b, seed, kind)
     c["obstacle"] = c["wall"].copy()
     w = c["cfg"].W
     for e, (i, j) in enumerate(c["goal"]):
@@ -74,13 +74,13 @@ def test_wrapper_cpu_matches_pallas_interpret(kw):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("sliding", [False, True], ids=["random", "sliding"])
+@pytest.mark.parametrize("kind", ["random", "sliding"])
 @pytest.mark.parametrize("kw", CASES, ids=IDS)
-def test_plain_version_is_the_pal8_render(kw, sliding):
+def test_plain_version_is_the_pal8_render(kw, kind):
     """Goal-vs-wall by tile equality on the mirror-ordered fan equals the
     plain pal8 render (wall-bit lookup, columns mirrored) of the plain
     crossing cast, exact-zero rays included."""
-    c = _single_goal_case(kw, 6, seed=41, sliding=sliding)
+    c = _single_goal_case(kw, 6, seed=41, kind=kind)
     cfg = c["cfg"]
     dirs = torch.flip(t(c["dirs"]), dims=(1,))
     hit_tu, hit_dim, dist = raycast.cast_rays_crossing(
@@ -122,15 +122,21 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sliding", [False, True], ids=["random", "sliding"])
+@pytest.mark.parametrize("kind", ["random", "sliding", "no_border", "tiny", "corners"])
 @pytest.mark.parametrize(
     "kw",
     [dict(num_rays=512), dict(height_tile_map_tu=48, width_tile_map_tu=48,
-                              num_rays=129, height_camera_view_pu=100)],
-    ids=["default", "big_map"],
+                              num_rays=129, height_camera_view_pu=100),
+     dict(height_tile_map_tu=16, width_tile_map_tu=16, num_rays=256,
+          height_camera_view_pu=128),
+     dict(num_rays=64, height_camera_view_pu=64),
+     dict(height_tile_map_tu=13, width_tile_map_tu=9, num_rays=513),
+     dict(height_tile_map_tu=24, width_tile_map_tu=40, num_rays=333,
+          height_camera_view_pu=100)],
+    ids=["default", "big_map", "room", "small", "odd_map", "wide_map"],
 )
-def test_cuda_kernel_matches_plain(cuda_device, kw, sliding):
-    c = _single_goal_case(kw, 16, seed=43, sliding=sliding)
+def test_cuda_kernel_matches_plain(cuda_device, kw, kind):
+    c = _single_goal_case(kw, 16, seed=43, kind=kind)
     args = _args(c, cuda_device)
     before = profiling.total("kernel_launches.crossing_render_pal8")
     got = rck.cast_render_pal8_kernel(*args)
