@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels and prints the card's name and power limit.  Then,
-for each of the port's six kernels, a row at the reference default (the
+for each of the port's seven kernels, a row at the reference default (the
 four cast and render kernels on density-0.25 fuzz maps, 8x16, 4096 envs x
 512 rays x 256 px) and a row at each path of ``paths()`` whose run launches
 it, on the inputs that path hands the kernel's wrapper over a reset and
-STEPS steps (threefry: the path's distinct hashes together; the fill: each
-distinct fill shape):
+STEPS steps (threefry: the path's distinct hashes together; the fill and
+the RGB conversion: each distinct shape):
 
 * kernel == plain, exact: the row's precondition;
 * device ms per launch (torch.profiler's CUDA activity over at least
@@ -60,6 +60,7 @@ WRAPPERS = {
                        "render_camera_fused_batched"),
     "threefry": ("raycastworlds_tpu_torch.rng", "_hash_kernel"),
     "flood_fill": ("raycastworlds_tpu_torch.ops.flood", "_flood_fill_kernel"),
+    "u32_to_rgb": ("raycastworlds_tpu_torch.ops.render", "_u32_to_rgb_kernel"),
 }
 
 
@@ -92,7 +93,7 @@ def plain_hash(key, g, pair):
 
 def plain(name):
     """The kernel's plain PyTorch version (the wrapper's arguments)."""
-    from raycastworlds_tpu_torch.ops import flood, raycast, render_fused
+    from raycastworlds_tpu_torch.ops import flood, raycast, render, render_fused
     from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
     return {
@@ -102,6 +103,7 @@ def plain(name):
         "dda_render_u32": render_fused.render_camera_fused_batched_ref,
         "threefry": plain_hash,
         "flood_fill": flood.flood_fill_plain,
+        "u32_to_rgb": render.u32_to_rgb_plain,
     }[name]
 
 
@@ -196,7 +198,9 @@ def work(name, args, out):
     frames written once, 4 operations a grid line crossed up to the hit,
     counted by the plain scan, 2 compares a rendered pixel); threefry, its
     keys read and outputs written once and THREEFRY_OPS an element; the
-    fill, its bool map read, int32 seeds read and bool result written."""
+    fill, its bool map read, int32 seeds read and bool result written; the
+    RGB conversion, 4 bytes read and 3 written a pixel, as the benchmark's
+    ``rgb_convert_roofline`` counts them."""
     import torch
 
     from benchmark import roofline
@@ -210,6 +214,9 @@ def work(name, args, out):
     if name == "flood_fill":
         passable, seed_tu, _ = args
         nbytes = 2 * passable.numel() + 4 * seed_tu.numel()
+        return nbytes, 0, roofline.bound_s(nbytes, 0)
+    if name == "u32_to_rgb":
+        nbytes = 7 * args[0].numel()
         return nbytes, 0, roofline.bound_s(nbytes, 0)
     words, shape, pos, dirs = (args[0], args[2], args[3], args[5]) if name == "dda_render_u32" \
         else args[:4]
@@ -230,6 +237,8 @@ def shape_of(name, calls) -> str:
         return f"{len(calls)} distinct hashes"
     if name == "flood_fill":
         return f"fill {list(args[0].shape)}"
+    if name == "u32_to_rgb":
+        return f"frames {list(args[0].shape)}"
     shape, dirs = (args[2], args[5]) if name == "dda_render_u32" else (args[1], args[3])
     hpu = {"crossing_render_pal8": 6, "dda_render_u32": 7}.get(name)
     return (f"{shape[0]}x{shape[1]} B={dirs.shape[0]} R={dirs.shape[1]}"
@@ -449,6 +458,9 @@ def paths() -> list:
         ("SingleRoom pal8 auto", env_path("SingleRoom", "EnvConfig", pal8, 1024, "auto")),
         ("RandomRoom rgb auto", env_path("RandomRoom", "RandomRoomConfig",
                                          dict(room, obs_type="camera_rgb"), 8192, "auto", 256)),
+        ("SingleRoom top_rgb auto", env_path("SingleRoom", "EnvConfig",
+                                             dict(pu_per_tu=8, obs_type="top_rgb"), 4096,
+                                             "auto")),
         ("RandomRoom pal8 crossing_kernel_fused",
          env_path("RandomRoom", "RandomRoomConfig", dict(room, **pal8), 8192,
                   "crossing_kernel_fused", 256)),

@@ -126,6 +126,7 @@ def load() -> ctypes.CDLL:
         "rcw_crossing_render_pal8": [vp] * 6 + [ci] * 6 + [cf, cf, vp],
         "rcw_threefry": [vp, cll, cll, vp] + [cu] * 6 + [ci, vp],
         "rcw_flood_fill": [vp] * 3 + [ci] * 4 + [vp],
+        "rcw_u32_to_rgb": [vp, vp, cll, vp],
     }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
@@ -172,7 +173,7 @@ def launch(entry, device, *args, what: str) -> None:
     ``rcw.kernel.<kernel>``, counted as ``kernel_launches.<kernel>``, where
     ``<kernel>`` is the entry's name without ``rcw_`` (``crossing_cast``,
     ``crossing_render_pal8``, ``dda_cast``, ``dda_render_u32``, ``threefry``,
-    ``flood_fill``)."""
+    ``flood_fill``, ``u32_to_rgb``)."""
     kernel = entry.__name__.removeprefix("rcw_")
     with profiling.span(f"rcw.kernel.{kernel}"), torch.cuda.device(device):
         err = entry(*args, torch.cuda.current_stream(device).cuda_stream)

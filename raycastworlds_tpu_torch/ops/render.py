@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import colors
+from .. import colors, cuda_build
 from ..config import EnvConfig
 from ..utils import profiling
 from . import bitmap
@@ -251,13 +251,47 @@ def render_camera_u32(
     return composite(pad, wall, hpu, i32(colors.CEILING), i32(colors.FLOOR))
 
 
-@profiling.span("rcw.ops.u32_to_rgb")
-def u32_to_rgb(img: torch.Tensor) -> torch.Tensor:
-    """0x00RRGGBB (int32 or uint32 view) -> uint8[..., 3]."""
+def u32_to_rgb_plain(img: torch.Tensor) -> torch.Tensor:
+    """:func:`u32_to_rgb` in torch ops on any device."""
     img = as_i32(img)
     return torch.stack(
         [(img >> 16) & 0xFF, (img >> 8) & 0xFF, img & 0xFF], dim=-1
     ).to(torch.uint8)
+
+
+def _uses_kernel(img: torch.Tensor) -> bool:
+    """The conversion's dispatch: a CUDA frame goes to the kernel (or
+    raises), any other takes the plain version."""
+    return img.device.type == "cuda"
+
+
+def _u32_to_rgb_kernel(img: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's conversion (``csrc/u32_to_rgb.cu``): one launch
+    into a fresh contiguous uint8[..., 3], no host read.  A non-contiguous
+    frame is made contiguous first; a dtype other than int32 or a uint32
+    view raises."""
+    img = as_i32(img)
+    if img.dtype != torch.int32:
+        raise ValueError(f"the RGB conversion takes int32 or uint32 frames, not {img.dtype}")
+    img = img.contiguous()
+    out = torch.empty(tuple(img.shape) + (3,), dtype=torch.uint8, device=img.device)
+    if img.numel() == 0:
+        return out
+    lib = cuda_build.load()
+    cuda_build.launch(lib.rcw_u32_to_rgb, img.device, img.data_ptr(), out.data_ptr(),
+                      img.numel(), what="RGB conversion")
+    return out
+
+
+@profiling.span("rcw.ops.u32_to_rgb")
+def u32_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """0x00RRGGBB (int32 or uint32 view) -> uint8[..., 3]: R, G, B, the top
+    byte ignored.  A CUDA frame launches the kernel once (counted as
+    ``kernel_launches.u32_to_rgb``); any other takes
+    :func:`u32_to_rgb_plain`."""
+    if _uses_kernel(img):
+        return _u32_to_rgb_kernel(img)
+    return u32_to_rgb_plain(img)
 
 
 def _luma_sum(img: torch.Tensor) -> torch.Tensor:

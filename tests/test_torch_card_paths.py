@@ -5,9 +5,10 @@ backends on the card and against the CPU, bit for bit.
   textured camera_pal8 frames decoding to the camera_u32 frames.
 * Every main path (reset + 64 steps of the throughput program at the JAX
   bench rows' widths) through its kernel, launched once per observation
-  and no other kernel, against each plain backend: identical final states
-  and checksums (``analytic``: checksums within 1e-6 relative, reset
-  frames 99.9% equal).  The configs no kernel takes (continuous headings,
+  and no other kernel but, on the camera_rgb and top_rgb paths, the RGB
+  conversion once per observation, against each plain backend: identical
+  final states and checksums (``analytic``: checksums within 1e-6
+  relative, reset frames 99.9% equal).  The configs no kernel takes (continuous headings,
   float64, a 640x640 map) launch none, and equal the CPU run.
 * The three PPO rows at full width, and one float32 train step through the
   kernel and through the plain cast.
@@ -39,7 +40,8 @@ from raycastworlds_tpu_torch import bench
 from raycastworlds_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("crossing_cast", "crossing_render_pal8", "dda_cast", "dda_render_u32")
+KERNELS = ("crossing_cast", "crossing_render_pal8", "dda_cast", "dda_render_u32", "u32_to_rgb")
+RGB_OBS = ("camera_rgb", "top_rgb")
 SEED = 0
 STEPS = 64
 
@@ -59,12 +61,16 @@ def launch_counts() -> dict:
     return {k: profiling.total(f"kernel_launches.{k}") for k in KERNELS}
 
 
-def assert_launched(before: dict, kernel, n: int) -> None:
-    """Since ``before``: ``kernel`` launched ``n`` times, no other kernel."""
+def assert_launched(before: dict, kernel, n: int, rgb: int = 0) -> None:
+    """Since ``before``: ``kernel`` launched ``n`` times, the RGB
+    conversion ``rgb`` times (once per observation of an RGB path), no
+    other kernel."""
     torch.cuda.synchronize()
     now = launch_counts()
     got = {k: now[k] - before[k] for k in KERNELS}
-    assert got == {k: n if k == kernel else 0 for k in KERNELS}
+    want = {k: n if k == kernel else 0 for k in KERNELS}
+    want["u32_to_rgb"] += rgb
+    assert got == want
 
 
 def same_state(a, b) -> bool:
@@ -173,6 +179,8 @@ MAIN_PATHS = {
     "random_room camera_rgb": ("RandomRoom", "RandomRoomConfig",
                                dict(ROOM, obs_type="camera_rgb"), 8192, "auto",
                                "crossing_cast", ["crossing"], 256),
+    "single_room top_rgb": ("SingleRoom", "EnvConfig", dict(pu_per_tu=8, obs_type="top_rgb"),
+                            4096, "auto", "crossing_cast", ["crossing"], 0),
     "random_room camera_pal8": ("RandomRoom", "RandomRoomConfig",
                                 dict(ROOM, obs_type="camera_pal8"), 8192,
                                 "crossing_kernel_fused", "crossing_render_pal8",
@@ -242,7 +250,9 @@ def test_main_path_kernel_equals_plain(cuda_device, label):
     make = lambda b: getattr(rt, family)(dataclasses.replace(cfg, raycast_backend=b))  # noqa: E731
     before = launch_counts()
     state, checksum, obs, resets = run_main_path(make(backend), num_envs, cuda_device, budget)
-    assert_launched(before, kernel, STEPS + 1)
+    # the RGB paths convert each observation once, whatever casts it
+    rgb = STEPS + 1 if cfg.obs_type in RGB_OBS else 0
+    assert_launched(before, kernel, STEPS + 1, rgb)
     assert tuple(obs.shape) == (num_envs,) + cfg.obs_shape
     assert math.isfinite(checksum)
     if budget:
@@ -576,12 +586,13 @@ def test_bench_row_kernel_equals_plain(cuda_device, name, raycast):
     backend = row["config"]["resolved_backend"]
     assert backend == ("crossing_kernel" if named == "auto" else named)
     kernel = BACKEND_KERNELS[backend]
-    assert_launched(before, kernel, 1 + 2 * BENCH_STEPS)
+    rgb = 1 + 2 * BENCH_STEPS if kw.get("obs") in RGB_OBS else 0
+    assert_launched(before, kernel, 1 + 2 * BENCH_STEPS, rgb)
     assert row["value"] > 0 and math.isfinite(row["checksum"])
     plain = "scan" if kernel.startswith("dda") else "crossing"
     before = launch_counts()
     p_row, p_state = bench_run(kw, cuda_device, plain)
-    assert_launched(before, None, 0)
+    assert_launched(before, None, 0, rgb)
     assert p_row["checksum"] == row["checksum"] and same_state(p_state, state)
 
 

@@ -318,10 +318,10 @@ def test_cuda_kernel_span_inside_the_cast():
     assert spans[spans[k].parent].name == "rcw.game.cast_batch"
 
 
-def _random_room_env(num_envs=8, reset_budget=3, **cfg):
+def _random_room_env(num_envs=8, reset_budget=3, device="cpu", **cfg):
     cfg = dict(num_rays=16, height_camera_view_pu=8, obs_type="camera_rgb",
                max_episode_steps=3, **cfg)
-    return rt.Env(rt.RandomRoom(rt.RandomRoomConfig(**cfg)), num_envs=num_envs, device="cpu",
+    return rt.Env(rt.RandomRoom(rt.RandomRoomConfig(**cfg)), num_envs=num_envs, device=device,
                   reset_budget=reset_budget)
 
 
@@ -348,6 +348,31 @@ def test_random_room_fill_and_rgb_spans_under_the_step():
     for i in rgbs:
         assert _ancestors(spans, i) == ["rcw.ops.render_observation", "rcw.game.observe_batch",
                                         "rcw.env.step"]
+
+
+@pytest.mark.cuda
+def test_cuda_random_room_kernel_spans_inside_their_ops():
+    """On the card each step's fill and RGB conversion launch their
+    kernels, whose spans sit inside ``rcw.ops.flood_fill`` and
+    ``rcw.ops.u32_to_rgb``: the device time the benchmark's
+    ``rgb_convert_roofline`` reads is the conversion kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    env = _random_room_env(device="cuda")
+    state, _ = env.reset(rt.rng.PRNGKey(3))
+    before = profiling.total("kernel_launches.u32_to_rgb")
+    profiling.enable()
+    for t in range(4):
+        state = env.step(state, _actions(env, t)).state
+    torch.cuda.synchronize()
+    profiling.disable()
+    assert profiling.total("kernel_launches.u32_to_rgb") == before + 4
+    spans = profiling.spans()
+    for op in ("flood_fill", "u32_to_rgb"):
+        kernels = _named(spans, f"rcw.kernel.{op}")
+        assert len(kernels) == len(_named(spans, f"rcw.ops.{op}")) == 4
+        for k in kernels:
+            assert spans[spans[k].parent].name == f"rcw.ops.{op}"
 
 
 @pytest.mark.parametrize("flood_iters,per_fill", [(-1, 16 * 16 // 2 + 2), (5, 5)])
