@@ -1,0 +1,15 @@
+"""The maze generator's device time: the kernels launched inside the
+program's ``rcw.game.maze_reset`` spans (``models/maze.py``'s
+``Maze.reset_batch``), summed over the profiled stretch, per step, in ms.
+Silent where the trace holds no such span or no kernel launched in one."""
+
+from benchmark import program_spans  # noqa: F401  (turns the program's tracer on)
+
+SPANS = {}
+
+
+def read(trace, ctx):
+    ops = trace.launched_within("rcw.game.maze_reset")
+    if not ops or not trace.steps:
+        return None
+    return sum(o.dur for o in ops) / trace.steps / 1e3

@@ -20,6 +20,7 @@ from .. import rng
 from ..config import EnvConfig
 from ..ops import bitmap, sampling
 from ..state import EnvState
+from ..utils import profiling
 from .base import Game
 
 
@@ -88,10 +89,13 @@ class Maze(Game):
                 wall = wall & ~room
         return wall
 
+    @profiling.span("rcw.game.maze_reset")
     def reset_batch(self, keys: torch.Tensor) -> EnvState:
+        """A fresh maze per key [B, 2] (counted as ``maze_maps``)."""
         cfg: MazeConfig = self.cfg
         dev = keys.device
         b = keys.shape[0]
+        profiling.count("maze_maps", b)
         sub = rng.split(keys, 5)
         next_key, k_map, k_goal, k_spawn, k_dir = (sub[:, q] for q in range(5))
 

@@ -6,9 +6,10 @@ On the CPU at 16 rays x 16 px: off, a step records nothing and enters no
 ids, lie inside their ``record_function`` events of a ``profiling.trace``
 on the trace's clock, and the counters (``reset_rows``, ``episodes_ended``,
 ``host_copy_bytes``, ``kernel_launches.<kernel>``, RandomRoom's
-``flood_dilations`` and ``budget_resets``) count what the step did;
-states, observations, rewards and dones are the same bit for bit with the
-tracer on and off.  Imports no JAX (the ``cuda`` test runs on the card).
+``flood_dilations`` and ``budget_resets``, Maze's ``maze_maps``) count
+what the step did; states, observations, rewards and dones are the same
+bit for bit with the tracer on and off.  Imports no JAX (the ``cuda``
+tests run on the card).
 """
 
 import contextlib
@@ -421,3 +422,54 @@ def test_random_room_same_results_with_tracing_on_and_off():
         x, y = a.state.to_numpy(), b.state.to_numpy()
         for k in x:
             assert np.array_equal(x[k], y[k]), k
+
+
+def _maze_env(num_envs=8, reset_budget=3, device="cpu"):
+    cfg = rt.MazeConfig(num_rays=16, height_camera_view_pu=8, max_episode_steps=3)
+    return rt.Env(rt.Maze(cfg), num_envs=num_envs, device=device, reset_budget=reset_budget)
+
+
+@pytest.mark.parametrize("budget", [0, 3])
+def test_maze_reset_span_counts_its_maps(budget):
+    """The first reset generates a maze per env; each step's reset then
+    generates ``reset_budget`` under a budget and a maze per env without
+    one, inside ``rcw.env.reset``."""
+    env = _maze_env(reset_budget=budget)
+    before = profiling.total("maze_maps")
+    profiling.enable()
+    state, _ = env.reset(rt.rng.PRNGKey(6))
+    for t in range(4):
+        state = env.step(state, _actions(env, t)).state
+    profiling.disable()
+    spans = profiling.spans()
+    resets = _named(spans, "rcw.game.maze_reset")
+    assert len(resets) == 5 and spans[resets[0]].parent == -1
+    for i in resets[1:]:
+        assert _ancestors(spans, i) == ["rcw.env.reset", "rcw.env.step"]
+    want = 8 + 4 * (budget or 8)
+    assert _summed("maze_maps", within="rcw.game.maze_reset") == want
+    assert profiling.total("maze_maps") - before == want
+
+
+@pytest.mark.cuda
+def test_cuda_maze_reset_threefry_launches_inside_its_span():
+    """On the card every threefry launch of the reset lies inside
+    ``rcw.game.maze_reset``: the kernels the benchmark's
+    ``maze_reset_device_ms`` and ``maze_reset_launches`` read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    env = _maze_env(num_envs=64, reset_budget=16, device="cuda")
+    state, _ = env.reset(rt.rng.PRNGKey(3))
+    actions = [_actions(env, t) for t in range(3)]
+    profiling.enable()
+    for a in actions:
+        state = env.step(state, a).state
+    torch.cuda.synchronize()
+    profiling.disable()
+    spans = profiling.spans()
+    assert len(_named(spans, "rcw.game.maze_reset")) == 3
+    in_reset = [k for k in _named(spans, "rcw.kernel.threefry")
+                if "rcw.env.reset" in _ancestors(spans, k)]
+    assert in_reset
+    assert all("rcw.game.maze_reset" in _ancestors(spans, k) for k in in_reset)
+    assert _summed("kernel_launches.threefry", within="rcw.game.maze_reset") == len(in_reset)
