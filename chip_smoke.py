@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels and prints the card's name and power limit.  Then,
-for each of the port's seven kernels, a row at the reference default (the
+for each of the port's eight kernels, a row at the reference default (the
 four cast and render kernels on density-0.25 fuzz maps, 8x16, 4096 envs x
 512 rays x 256 px) and a row at each path of ``paths()`` whose run launches
 it, on the inputs that path hands the kernel's wrapper over a reset and
-STEPS steps (threefry: the path's distinct hashes together; the fill and
-the RGB conversion: each distinct shape):
+STEPS steps (threefry: the path's distinct hashes together; the fill, the
+RGB conversion and Maze's reset: each distinct shape):
 
 * kernel == plain, exact: the row's precondition;
 * device ms per launch (torch.profiler's CUDA activity over at least
@@ -61,6 +61,7 @@ WRAPPERS = {
     "threefry": ("raycastworlds_tpu_torch.rng", "_hash_kernel"),
     "flood_fill": ("raycastworlds_tpu_torch.ops.flood", "_flood_fill_kernel"),
     "u32_to_rgb": ("raycastworlds_tpu_torch.ops.render", "_u32_to_rgb_kernel"),
+    "maze_reset": ("raycastworlds_tpu_torch.models.maze", "_maze_reset_kernel"),
 }
 
 
@@ -93,6 +94,7 @@ def plain_hash(key, g, pair):
 
 def plain(name):
     """The kernel's plain PyTorch version (the wrapper's arguments)."""
+    from raycastworlds_tpu_torch.models.maze import Maze
     from raycastworlds_tpu_torch.ops import flood, raycast, render, render_fused
     from raycastworlds_tpu_torch.ops import raycast_crossing_kernel as rck
 
@@ -104,6 +106,7 @@ def plain(name):
         "threefry": plain_hash,
         "flood_fill": flood.flood_fill_plain,
         "u32_to_rgb": render.u32_to_rgb_plain,
+        "maze_reset": lambda cfg, keys: Maze(cfg).reset_batch_plain(keys),
     }[name]
 
 
@@ -200,7 +203,8 @@ def work(name, args, out):
     keys read and outputs written once and THREEFRY_OPS an element; the
     fill, its bool map read, int32 seeds read and bool result written; the
     RGB conversion, 4 bytes read and 3 written a pixel, as the benchmark's
-    ``rgb_convert_roofline`` counts them."""
+    ``rgb_convert_roofline`` counts them; Maze's reset, its keys read and
+    its state written once and THREEFRY_OPS a hash of ``maze_hashes``."""
     import torch
 
     from benchmark import roofline
@@ -218,6 +222,12 @@ def work(name, args, out):
     if name == "u32_to_rgb":
         nbytes = 7 * args[0].numel()
         return nbytes, 0, roofline.bound_s(nbytes, 0)
+    if name == "maze_reset":
+        cfg, keys = args
+        nbytes = keys.numel() * keys.element_size() + sum(
+            x.numel() * x.element_size() for x in out.leaves().values())
+        ops = keys.shape[0] * maze_hashes(cfg) * THREEFRY_OPS
+        return nbytes, ops, max(nbytes / roofline.HBM_BYTES_PER_S, ops / INT32_OPS_PER_S)
     words, shape, pos, dirs = (args[0], args[2], args[3], args[5]) if name == "dda_render_u32" \
         else args[:4]
     b, r = dirs.shape[:2]
@@ -231,6 +241,16 @@ def work(name, args, out):
     return nbytes, ops, roofline.bound_s(nbytes, ops)
 
 
+def maze_hashes(cfg) -> int:
+    """Threefry hashes of one Maze reset: split(key, 5), the map key's
+    split, a coin a cell, the rooms' split and 14 a room (its split and two
+    randints of shape (2,): a split and 2 + 2 words each), the goal's and
+    the spawn's uniforms, and the heading (a uniform, or a randint's 4)."""
+    cells = (cfg.H - 1) // 2 * ((cfg.W - 1) // 2)
+    rooms = cfg.num_rooms + 14 * cfg.num_rooms
+    return 5 + 2 + cells + rooms + 2 + (1 if cfg.continuous_heading else 4)
+
+
 def shape_of(name, calls) -> str:
     args = calls[0]
     if name == "threefry":
@@ -239,6 +259,8 @@ def shape_of(name, calls) -> str:
         return f"fill {list(args[0].shape)}"
     if name == "u32_to_rgb":
         return f"frames {list(args[0].shape)}"
+    if name == "maze_reset":
+        return f"reset [{args[1].shape[0]}, {args[0].H}, {args[0].W}]"
     shape, dirs = (args[2], args[5]) if name == "dda_render_u32" else (args[1], args[3])
     hpu = {"crossing_render_pal8": 6, "dda_render_u32": 7}.get(name)
     return (f"{shape[0]}x{shape[1]} B={dirs.shape[0]} R={dirs.shape[1]}"
@@ -256,12 +278,15 @@ def measure(name, label, calls, launches_per_step) -> dict:
     got, want = kernel(), plain_fn()
     torch.cuda.synchronize()
     for g, w in zip(got, want):
+        if name == "maze_reset":  # an EnvState: every leaf
+            g, w = tuple(g.leaves().values()), tuple(w.leaves().values())
         g, w = (g, w) if isinstance(g, tuple) else ((g,), (w,))
         check(all(torch.equal(x, y) for x, y in zip(g, w)), f"{name} != plain at {label}")
     dev = device_ms(name, kernel, len(calls))
     host = time_ms(kernel, 20) / len(calls)
     plain_ms = time_ms(plain_fn, 3) / len(calls)
-    works = [work(name, a, g if torch.is_tensor(g) else None) for a, g in zip(calls, got)]
+    works = [work(name, a, g if torch.is_tensor(g) or name == "maze_reset" else None)
+             for a, g in zip(calls, got)]
     nbytes, ops = sum(w[0] for w in works), sum(w[1] for w in works)
     bound = sum(w[2] for w in works) * 1e3 / len(calls)
     row = dict(kernel=name, shape=f"{label}: {shape_of(name, calls)}",

@@ -33,22 +33,11 @@
 
 #include <cuda_runtime.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
-  return __funnelshift_l(v, v, r);
-}
-
-// Four rounds: mix, rotate by R, xor.
-template <int R0, int R1, int R2, int R3>
-__device__ __forceinline__ void rounds(uint32_t& x0, uint32_t& x1) {
-  x0 += x1; x1 = rotl(x1, R0) ^ x0;
-  x0 += x1; x1 = rotl(x1, R1) ^ x0;
-  x0 += x1; x1 = rotl(x1, R2) ^ x0;
-  x0 += x1; x1 = rotl(x1, R3) ^ x0;
-}
 
 __global__ void __launch_bounds__(kThreads) threefry_kernel(
     const int64_t* __restrict__ keys,  // word w of key l: keys[l * key_stride + w * word_stride]
@@ -66,19 +55,11 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(
   const int64_t* key = keys + static_cast<int64_t>(l) * key_stride;
   const uint32_t k0 = static_cast<uint32_t>(key[0]);
   const uint32_t k1 = static_cast<uint32_t>(key[word_stride]);
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = k0;  // counter word 0 is 0
-  uint32_t x1 = c + k1;
-  // five groups of four rounds, each followed by a key injection
-  rounds<13, 15, 26, 6>(x0, x1);  x0 += k1;  x1 += k2 + 1u;
-  rounds<17, 29, 16, 24>(x0, x1); x0 += k2;  x1 += k0 + 2u;
-  rounds<13, 15, 26, 6>(x0, x1);  x0 += k0;  x1 += k1 + 3u;
-  rounds<17, 29, 16, 24>(x0, x1); x0 += k1;  x1 += k2 + 4u;
-  rounds<13, 15, 26, 6>(x0, x1);  x0 += k2;  x1 += k0 + 5u;
+  const uint2 x = threefry2x32(k0, k1, c);
   if (pair) {
-    reinterpret_cast<longlong2*>(out)[i] = make_longlong2(x0, x1);
+    reinterpret_cast<longlong2*>(out)[i] = make_longlong2(x.x, x.y);
   } else {
-    out[i] = x0 ^ x1;
+    out[i] = x.x ^ x.y;
   }
 }
 

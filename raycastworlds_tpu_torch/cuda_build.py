@@ -127,6 +127,7 @@ def load() -> ctypes.CDLL:
         "rcw_threefry": [vp, cll, cll, vp] + [cu] * 6 + [ci, vp],
         "rcw_flood_fill": [vp] * 3 + [ci] * 4 + [vp],
         "rcw_u32_to_rgb": [vp, vp, cll, vp],
+        "rcw_maze_reset": [vp, cll, cll] + [vp] * 10 + [ci] * 8 + [vp],
     }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
@@ -173,7 +174,7 @@ def launch(entry, device, *args, what: str) -> None:
     ``rcw.kernel.<kernel>``, counted as ``kernel_launches.<kernel>``, where
     ``<kernel>`` is the entry's name without ``rcw_`` (``crossing_cast``,
     ``crossing_render_pal8``, ``dda_cast``, ``dda_render_u32``, ``threefry``,
-    ``flood_fill``, ``u32_to_rgb``)."""
+    ``flood_fill``, ``u32_to_rgb``, ``maze_reset``)."""
     kernel = entry.__name__.removeprefix("rcw_")
     with profiling.span(f"rcw.kernel.{kernel}"), torch.cuda.device(device):
         err = entry(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -7,7 +7,8 @@ ids, lie inside their ``record_function`` events of a ``profiling.trace``
 on the trace's clock, and the counters (``reset_rows``, ``episodes_ended``,
 ``host_copy_bytes``, ``kernel_launches.<kernel>``, RandomRoom's
 ``flood_dilations`` and ``budget_resets``, Maze's ``maze_maps``) count
-what the step did; states, observations, rewards and dones are the same
+what the step did, and Maze's reset kernel (emulated on the CPU) opens its
+span inside the reset's; states, observations, rewards and dones are the same
 bit for bit with the tracer on and off.  Imports no JAX (the ``cuda``
 tests run on the card).
 """
@@ -20,8 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+import maze_kernel_emulation
 import raycastworlds_tpu_torch as rt
 from raycastworlds_tpu_torch import cuda_build
+from raycastworlds_tpu_torch.models import maze as maze_module
 from raycastworlds_tpu_torch.utils import profiling
 
 SMALL = dict(num_rays=16, height_camera_view_pu=16)
@@ -451,11 +454,37 @@ def test_maze_reset_span_counts_its_maps(budget):
     assert profiling.total("maze_maps") - before == want
 
 
+def test_maze_reset_kernel_span_inside_the_reset(monkeypatch):
+    """With the reset dispatched as for a CUDA key (an emulation of the
+    kernel on host memory, launched through ``cuda_build.launch``), each
+    reset's one launch of ``maze_reset`` opens ``rcw.kernel.maze_reset``
+    inside ``rcw.game.maze_reset``, and a budgeted step counts one
+    ``kernel_launches.maze_reset`` there."""
+    monkeypatch.setattr(maze_module, "_uses_kernel", lambda keys: True)
+    monkeypatch.setattr(cuda_build, "load", lambda: types.SimpleNamespace(
+        rcw_maze_reset=maze_kernel_emulation.rcw_maze_reset))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    env = _maze_env()
+    state, _ = env.reset(rt.rng.PRNGKey(6))
+    before = profiling.total("kernel_launches.maze_reset")
+    profiling.enable()
+    state = env.step(state, _actions(env, 0)).state
+    profiling.disable()
+    assert profiling.total("kernel_launches.maze_reset") == before + 1
+    spans = profiling.spans()
+    (k,) = _named(spans, "rcw.kernel.maze_reset")
+    assert _ancestors(spans, k) == ["rcw.game.maze_reset", "rcw.env.reset", "rcw.env.step"]
+    assert _summed("kernel_launches.maze_reset", within="rcw.game.maze_reset") == 1
+
+
 @pytest.mark.cuda
 def test_cuda_maze_reset_threefry_launches_inside_its_span():
-    """On the card every threefry launch of the reset lies inside
-    ``rcw.game.maze_reset``: the kernels the benchmark's
-    ``maze_reset_device_ms`` and ``maze_reset_launches`` read."""
+    """On the card each reset is one ``maze_reset`` launch inside
+    ``rcw.game.maze_reset``, and no threefry launch is left there: the
+    kernels the benchmark's ``maze_reset_device_ms`` and
+    ``maze_reset_launches`` read."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     env = _maze_env(num_envs=64, reset_budget=16, device="cuda")
@@ -467,9 +496,11 @@ def test_cuda_maze_reset_threefry_launches_inside_its_span():
     torch.cuda.synchronize()
     profiling.disable()
     spans = profiling.spans()
-    assert len(_named(spans, "rcw.game.maze_reset")) == 3
-    in_reset = [k for k in _named(spans, "rcw.kernel.threefry")
-                if "rcw.env.reset" in _ancestors(spans, k)]
-    assert in_reset
-    assert all("rcw.game.maze_reset" in _ancestors(spans, k) for k in in_reset)
-    assert _summed("kernel_launches.threefry", within="rcw.game.maze_reset") == len(in_reset)
+    resets = _named(spans, "rcw.game.maze_reset")
+    kernels = _named(spans, "rcw.kernel.maze_reset")
+    assert len(resets) == len(kernels) == 3
+    assert all(spans[k].parent in resets for k in kernels)
+    assert _summed("kernel_launches.maze_reset", within="rcw.game.maze_reset") == 3
+    assert not [k for k in _named(spans, "rcw.kernel.threefry")
+                if "rcw.game.maze_reset" in _ancestors(spans, k)]
+    assert _summed("kernel_launches.threefry", within="rcw.game.maze_reset") == 0
