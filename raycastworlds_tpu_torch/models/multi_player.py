@@ -35,6 +35,7 @@ from ..config import EnvConfig
 from ..ops import bitmap, collision, raycast, render, sampling, topview
 from ..ops.units import wu_to_pu
 from ..state import EnvState
+from ..utils import profiling
 from .base import Game
 
 
@@ -200,12 +201,14 @@ class MultiPlayerRoom(Game):
         others = self._others_tiles(state).reshape(b * p, p, 2)
         return bitmap.tiles_to_words(others, (self.cfg.H, self.cfg.W), nw)
 
+    @profiling.span("rcw.game.cast_players")
     def _cast_players(self, state: EnvState):
         """(walls, player dirs, hits, t_sprite or None, blocks, positions) of
         every player's view, flattened to [B*P, ...]: one batch cast of B*P
-        poses."""
+        poses (counted as ``player_views``)."""
         cfg: MultiPlayerConfig = self.cfg
         b, p = state.dir_au.shape
+        profiling.count("player_views", b * p)
         walls, obstacles, blocks = self._viewer_words(state)
         flat = _flat(state)
         pos = flat.pos_wu

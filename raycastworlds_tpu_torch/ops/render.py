@@ -358,6 +358,7 @@ def render_camera_pal8(
     return composite(pad, band, hpu, u8(colors.PAL_CEILING), u8(colors.PAL_FLOOR))
 
 
+@profiling.span("rcw.ops.sprite_overlay")
 def sprite_overlay(cfg: EnvConfig, img: torch.Tensor, player_dir_wu, hits: RayHits,
                    t_sprite: torch.Tensor, color: int, sprite_height_wu: float
                    ) -> torch.Tensor:

@@ -6,15 +6,18 @@ On the CPU at 16 rays x 16 px: off, a step records nothing and enters no
 ids, lie inside their ``record_function`` events of a ``profiling.trace``
 on the trace's clock, and the counters (``reset_rows``, ``episodes_ended``,
 ``host_copy_bytes``, ``kernel_launches.<kernel>``, RandomRoom's
-``flood_dilations`` and ``budget_resets``, Maze's ``maze_maps``) count
-what the step did, and Maze's reset kernel (emulated on the CPU) opens its
-span inside the reset's; states, observations, rewards and dones are the same
-bit for bit with the tracer on and off.  Imports no JAX (the ``cuda``
+``flood_dilations`` and ``budget_resets``, Maze's ``maze_maps``,
+MultiPlayerRoom's ``player_views``) count what the step did,
+MultiPlayerRoom's cast and sprite spans open once an observation, and
+Maze's reset kernel (emulated on the CPU) opens its span inside the
+reset's; states, observations, rewards and dones are the same bit for bit
+with the tracer on and off.  Imports no JAX (the ``cuda``
 tests run on the card).
 """
 
 import contextlib
 import json
+import os
 import types
 
 import numpy as np
@@ -504,3 +507,89 @@ def test_cuda_maze_reset_threefry_launches_inside_its_span():
     assert not [k for k in _named(spans, "rcw.kernel.threefry")
                 if "rcw.game.maze_reset" in _ancestors(spans, k)]
     assert _summed("kernel_launches.threefry", within="rcw.game.maze_reset") == 0
+
+
+def _multi_player_env(num_envs=6, device="cpu", **cfg):
+    cfg = dict(num_rays=16, height_camera_view_pu=8, **cfg)
+    return rt.Env(rt.MultiPlayerRoom(rt.MultiPlayerConfig(**cfg)), num_envs=num_envs,
+                  device=device)
+
+
+@pytest.mark.parametrize("players", [2, 3])
+def test_player_spans_open_once_an_observation(players):
+    """The reset's observation and each step's: one ``rcw.game.cast_players``
+    counting B*P ``player_views``, and one ``rcw.ops.sprite_overlay``, each
+    inside the step's observation."""
+    env = _multi_player_env(num_players=players)
+    before = profiling.total("player_views")
+    profiling.enable()
+    state, _ = env.reset(rt.rng.PRNGKey(6))
+    for t in range(3):
+        state = env.step(state, _actions(env, t)).state
+    profiling.disable()
+    spans = profiling.spans()
+    for name in ("rcw.game.cast_players", "rcw.ops.sprite_overlay"):
+        found = _named(spans, name)
+        assert len(found) == 4
+        assert _ancestors(spans, found[0]) == []
+        for i in found[1:]:
+            assert _ancestors(spans, i) == ["rcw.game.observe_batch", "rcw.env.step"]
+    assert _summed("player_views", within="rcw.game.cast_players") == 4 * 6 * players
+    assert profiling.total("player_views") - before == 4 * 6 * players
+
+
+def test_no_sprite_span_where_players_are_unseen():
+    env = _multi_player_env(players_visible=False)
+    profiling.enable()
+    state, _ = env.reset(rt.rng.PRNGKey(6))
+    env.step(state, _actions(env, 0))
+    profiling.disable()
+    spans = profiling.spans()
+    assert len(_named(spans, "rcw.game.cast_players")) == 2
+    assert not _named(spans, "rcw.ops.sprite_overlay")
+
+
+def _cell_env():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "multi_player_2p.json")) as f:
+        return json.load(f)["env"]
+
+
+@pytest.mark.cuda
+def test_cuda_multi_player_cell_equals_the_cpu():
+    """The benchmark cell's configuration at 4096 envs, 12 steps: the card's
+    states and frames equal the CPU's, and each observation's cast is one
+    ``crossing_cast`` launch inside ``rcw.game.cast_players``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = rt.MultiPlayerConfig(**_cell_env())
+    gen = torch.Generator().manual_seed(12)
+    actions = torch.randint(0, 4, (12, 4096, 2), generator=gen, dtype=torch.int32)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        env = rt.Env(rt.MultiPlayerRoom(cfg), num_envs=4096, device=device)
+        state, obs = env.reset(rt.rng.PRNGKey(7).to(device))
+        frames = [obs.view(torch.int32).cpu()]
+        if device == "cuda":
+            profiling.enable()
+        for a in actions:
+            res = env.step(state, a.to(device))
+            state = res.state
+            frames.append(res.obs.view(torch.int32).cpu())
+        if device == "cuda":
+            torch.cuda.synchronize()
+            profiling.disable()
+        runs[device] = state.to_numpy(), torch.stack(frames)
+    (cpu_state, cpu_frames), (card_state, card_frames) = runs["cpu"], runs["cuda"]
+    for leaf in cpu_state:
+        assert np.array_equal(cpu_state[leaf], card_state[leaf]), leaf
+    assert torch.equal(cpu_frames, card_frames)
+    assert int((cpu_frames == 0x0000FF).sum()) > 0      # sprites shown
+    spans = profiling.spans()
+    casts = _named(spans, "rcw.game.cast_players")
+    kernels = _named(spans, "rcw.kernel.crossing_cast")
+    assert len(casts) == len(kernels) == 12
+    assert all(spans[k].parent in casts for k in kernels)
+    assert _summed("kernel_launches.crossing_cast", within="rcw.game.cast_players") == 12
